@@ -1,0 +1,387 @@
+#!/usr/bin/env python3
+"""On-card check of posteriflow_torch: serve the 15-D flagship release on one
+NVIDIA GPU through the hand-written CUDA RQS kernel.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+  (a) CUDA present (no CPU fallback); the card's name and power limit; TF32
+      off for matmuls and cuDNN; build the kernel with nvcc.
+  (b) the kernel against its plain PyTorch version at the flagship sampling
+      shape (N = 131072 rows, D = 7, K = 16), both directions, with tails
+      beyond ±5: |out| <= 2e-5 and |logdet| <= 2e-4.
+  (c) serve 4 requests through `infer` (raw 32 s coloured Gaussian noise per
+      detector from the design ASD, 5000 draws, ranks 0, 1, 0, 1); the
+      launch counter must grow by one per flow layer per request. The
+      served path is then held against the port's plain CPU path on the
+      same input and base draws (float32 and the release's bfloat16).
+  (d) time one bench-shaped batch (8 events × 16384 draws) with CUDA
+      events, the kernel per launch beside its bound and the plain version.
+  (e) the kernel table and the device as JSON lines; the last line is
+      {"ok": true, "device": {...}}.
+The script imports torch, numpy and scipy (through the port) only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+RELEASE = "model_release/npe_r7_best"
+SAMPLE_RATE = 4096
+DETECTORS = ("H1", "L1", "V1")
+N_ROWS, D_TR, K_BINS, TAIL = 131072, 7, 16, 5.0   # flagship sampling shape
+TOL_OUT, TOL_LOGDET = 2e-5, 2e-4
+N_REQUESTS, N_SAMPLES = 4, 5000
+BENCH_EVENTS, BENCH_DRAWS = 8, 16384              # bench.py:45-46
+N_REF_DRAWS = 256
+DEVICE = "cuda"
+# H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(ok: bool, msg: str):
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+def card_name_and_power() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(out.returncode == 0 and out.stdout.strip() != "",
+          f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def coloured_noise(seed: int, seconds: float = 32.0,
+                   sample_rate: int = SAMPLE_RATE) -> dict:
+    """{detector: raw strain} of stationary Gaussian noise with the design
+    PSD (one-sided S(f): E|X_k|² = N·fs·S(f_k)/2), float64."""
+    from posteriflow_torch.physics.psd import psd_for
+    n = int(seconds * sample_rate)
+    f = np.fft.rfftfreq(n, 1.0 / sample_rate)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for det in DETECTORS:
+        amp = np.sqrt(n * sample_rate * psd_for(det, f) / 4.0)
+        xf = amp * (rng.standard_normal(f.size)
+                    + 1j * rng.standard_normal(f.size))
+        out[det] = np.fft.irfft(xf, n=n)
+    return out
+
+
+def rqs_bytes(n: int, d: int, k: int) -> int:
+    """Bytes the spline must move: x and raw read once, out and logdet
+    written once (float32)."""
+    return 4 * (n * d + n * d * (3 * k - 1) + n * d + n)
+
+
+def rqs_ops(n: int, d: int, k: int) -> int:
+    """f32 operations of one spline call, counted per (row, dim) from the
+    kernel's source: two softmaxes (~6K each), two knot cumsums (~2K
+    each), K-1 softplus (~3 each), K-1 bin compares, 6(K-1) selects and
+    ~40 for the rational-quadratic map and its log-derivative."""
+    return n * d * (26 * k + 40)
+
+
+def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over `reps` runs, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def phase_kernel_check(torch, plain, rqs_cuda, card):
+    """(b) kernel vs plain version at the flagship sampling shape."""
+    rng = np.random.default_rng(0)
+    n_raw = 3 * K_BINS - 1
+    # as the repo's Pallas parity test draws them: |x| up to 6 (tails beyond
+    # ±5), raw spline parameters N(0, 0.7²)
+    x = torch.from_numpy(np.clip(rng.standard_normal((N_ROWS, D_TR)) * 2.5,
+                                 -6.0, 6.0).astype(np.float32)).to(DEVICE)
+    raw = torch.from_numpy((rng.standard_normal((N_ROWS, D_TR, n_raw))
+                            * 0.7).astype(np.float32)).to(DEVICE)
+    frac_tail = float((x.abs() > TAIL).float().mean())
+    errs = {}
+    for inverse in (False, True):
+        k_out, k_ld = rqs_cuda.KERNEL.launch(
+            x, raw.reshape(N_ROWS, -1), K_BINS, TAIL, inverse)
+        p_fn = plain.rqs_inverse if inverse else plain.rqs_forward
+        p_out, p_ld = p_fn(x, raw, K_BINS, TAIL)
+        torch.cuda.synchronize()
+        e_out = float((k_out - p_out).abs().max())
+        e_ld = float((k_ld - p_ld).abs().max())
+        name = "inverse" if inverse else "forward"
+        print(f"(b) kernel vs plain, {name}, N={N_ROWS} D={D_TR} K={K_BINS} "
+              f"(tails: {frac_tail:.4f} of x beyond ±{TAIL:g}): "
+              f"max|Δout| {e_out:.3e} (tol {TOL_OUT:g}), "
+              f"max|Δlogdet| {e_ld:.3e} (tol {TOL_LOGDET:g})")
+        check(math.isfinite(e_out) and e_out <= TOL_OUT,
+              f"kernel {name} out differs by {e_out}")
+        check(math.isfinite(e_ld) and e_ld <= TOL_LOGDET,
+              f"kernel {name} logdet differs by {e_ld}")
+        errs[name] = (e_out, e_ld)
+    return x, raw, errs
+
+
+def phase_serve(torch, rqs_cuda, engine, card):
+    """(c) serve N_REQUESTS requests; the kernel must run once per layer."""
+    from posteriflow_torch.inference.pipeline import infer
+    layers = engine.cfg.flow_layers
+    rqs_cuda.KERNEL.launches = 0
+    for i in range(N_REQUESTS):
+        before = rqs_cuda.KERNEL.launches
+        rank = i % 2
+        t0 = time.perf_counter()
+        res = infer(engine, strain=coloured_noise(seed=100 + i), rank=rank,
+                    n_samples=N_SAMPLES, seed=i)
+        wall = time.perf_counter() - t0
+        grew = rqs_cuda.KERNEL.launches - before
+        rt = res.diagnostics["runtime"]
+        print(f"(c) request {i} rank {rank}: {wall * 1e3:.1f} ms wall "
+              f"(prepare {rt['prepare'] * 1e3:.1f}, encode "
+              f"{rt['encode'] * 1e3:.1f}, sampling {rt['sampling'] * 1e3:.1f})"
+              f" [{card}]; verdict {res.verdict}, refine "
+              f"{res.gate.get('refine')}, railing "
+              f"{res.railing_fraction():.3f}, kernel launches +{grew}")
+        check(grew == layers, f"request {i}: kernel launched {grew} times, "
+                              f"expected {layers}")
+        check(res.samples.shape == (N_SAMPLES, engine.cfg.n_params),
+              f"samples shape {res.samples.shape}")
+        check(bool(np.isfinite(res.samples).all()), "non-finite samples")
+        check(bool(np.isfinite(res.log_prob).all()), "non-finite log_q")
+        check(res.verdict in ("HIGH", "MEDIUM", "LOW"),
+              f"verdict {res.verdict!r}")
+        check(isinstance(res.gate, dict) and "refine" in res.gate,
+              "refinement gate missing")
+    return rqs_cuda.KERNEL.launches
+
+
+def phase_reference(torch, engine_cls, state_dict, cfg, card):
+    """(c, continued) the card's path against the port's CPU path on the
+    same prepared input: the contexts, then both flows on the CPU's context
+    with the same base draws."""
+    from posteriflow_torch.inference.preprocessing import prepare_real
+    prep = prepare_real(coloured_noise(seed=100), psd_bands=cfg.psd_bands)
+    z = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (1, N_REF_DRAWS, cfg.n_params)).astype(np.float32))
+    # (context, relative to its largest entry; y; log q). float32: the CPU
+    # port agrees with JAX to 1e-6 on the context and 1e-5 on the draws, so
+    # 1e-3 on the context and the largest |Δy|. bfloat16: the context as in
+    # tests/test_torch_flagship.py; a last-bit flip of one bf16 activation
+    # can move a draw far, so the median |Δy| is held to one bf16 step
+    # (2^-8) and the median |Δlog q| to 0.1 nat.
+    tol = {"float32": (1e-3, 1e-3, 1e-2), "bfloat16": (3e-2, 2 ** -8, 0.1)}
+    for dt in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, flow_dtype=dt, encoder_dtype=dt)
+        engines = [engine_cls(state_dict, c, device=dev)
+                   for dev in (DEVICE, "cpu")]
+        ctx = [e.encode(prep.strain[None], prep.asd_bands[None])
+               for e in engines]
+        outs = []
+        for e in engines:
+            dev = e.device
+            with torch.no_grad():
+                full = e.model.full_context(
+                    ctx[1].to(dev), torch.zeros(1, dtype=torch.long,
+                                                device=dev))
+                y, lq = e.model.flow.sample_with_log_prob(z.to(dev),
+                                                          full[:, None, :])
+            outs.append([t.float().cpu().numpy() for t in (y, lq)])
+        cg, cc = (t.float().cpu().numpy() for t in ctx)
+        (yg, lg), (yc, lc) = outs
+        d_ctx = float(np.abs(cg - cc).max() / max(1.0, np.abs(cc).max()))
+        d_y = np.abs(yg - yc)
+        d_lq = float(np.median(np.abs(lg - lc)))
+        held = float(d_y.max() if dt == "float32" else np.median(d_y))
+        t_ctx, t_y, t_lq = tol[dt]
+        print(f"(c) card vs CPU, {dt}: max|Δcontext| rel {d_ctx:.3e} (tol "
+              f"{t_ctx:g}); flows on one context, {N_REF_DRAWS} draws: "
+              f"|Δy| max {d_y.max():.3e} median {np.median(d_y):.3e} (tol "
+              f"{t_y:g} on the {'max' if dt == 'float32' else 'median'}), "
+              f"median|Δlog q| {d_lq:.3e} (tol {t_lq:g})")
+        check(d_ctx <= t_ctx, f"{dt}: context differs by {d_ctx}")
+        check(held <= t_y, f"{dt}: samples differ by {held}")
+        check(d_lq <= t_lq, f"{dt}: log q differs by {d_lq}")
+
+
+def phase_bench(torch, plain, rqs_cuda, engine, x, raw, card):
+    """(d) one bench-shaped batch, and the kernel alone at its shape."""
+    from posteriflow_torch.inference.preprocessing import prepare_real
+    preps = [prepare_real(coloured_noise(seed=200 + i),
+                          psd_bands=engine.cfg.psd_bands)
+             for i in range(BENCH_EVENTS)]
+    strain = np.stack([p.strain for p in preps])
+    bands = np.stack([p.asd_bands for p in preps])
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    ctx = engine.encode(strain, bands)
+    n_draws = BENCH_EVENTS * BENCH_DRAWS
+
+    before = rqs_cuda.KERNEL.launches
+    engine.sample_posterior(ctx, 0, BENCH_DRAWS, generator=gen)
+    torch.cuda.synchronize()
+    per_batch = rqs_cuda.KERNEL.launches - before
+    check(per_batch == engine.cfg.flow_layers,
+          f"bench batch launched the kernel {per_batch} times")
+
+    enc_ms = cuda_time_ms(lambda: engine.encode(strain, bands), reps=5)
+    smp_ms = cuda_time_ms(lambda: engine.sample_posterior(
+        ctx, 0, BENCH_DRAWS, generator=gen), reps=5)
+    draws_per_s = n_draws / (smp_ms * 1e-3)
+
+    raw2 = raw.reshape(N_ROWS, -1)
+    times = {}
+    for inverse in (True, False):
+        name = "inverse" if inverse else "forward"
+        p_fn = plain.rqs_inverse if inverse else plain.rqs_forward
+        times[name] = (
+            cuda_time_ms(lambda: rqs_cuda.KERNEL.launch(
+                x, raw2, K_BINS, TAIL, inverse), reps=20),
+            cuda_time_ms(lambda: p_fn(x, raw, K_BINS, TAIL), reps=5))
+    nbytes = rqs_bytes(N_ROWS, D_TR, K_BINS)
+    nops = rqs_ops(N_ROWS, D_TR, K_BINS)
+    bound_ms = max(nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOPS) * 1e3
+    bound_by = ("bytes" if nbytes / PEAK_BYTES_PER_S >= nops / PEAK_F32_FLOPS
+                else "operations")
+    print(f"(d) bench batch {BENCH_EVENTS} events x {BENCH_DRAWS} draws "
+          f"[{card}]: encode {enc_ms:.3f} ms, sampling {smp_ms:.3f} ms, "
+          f"{draws_per_s:.0f} draws/s, kernel launches per batch {per_batch}")
+    for name, (k_ms, p_ms) in times.items():
+        print(f"(d) rqs {name} N={N_ROWS} D={D_TR} K={K_BINS} [{card}]: "
+              f"kernel {k_ms * 1e3:.1f} us/launch, plain {p_ms * 1e3:.1f} us, "
+              f"bound {bound_ms * 1e3:.1f} us ({bound_by}: {nbytes} B at "
+              f"3.35 TB/s, {nops} f32 ops at 67 TFLOP/s), kernel at "
+              f"{nbytes / (k_ms * 1e-3) / 1e12:.3f} TB/s")
+    return {"encode_ms": enc_ms, "sampling_ms": smp_ms,
+            "draws_per_s": draws_per_s, "per_batch": per_batch,
+            "times": times, "bound_ms": bound_ms, "bound_by": bound_by,
+            "ctx": ctx, "gen": gen}
+
+
+def phase_profile(torch, engine, bench, card):
+    """Device time of one bench batch by kernel (torch.profiler): the busy
+    share of the profiled window and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.sample_posterior(bench["ctx"], 0, BENCH_DRAWS,
+                                    generator=bench["gen"])
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    except RuntimeError as e:           # no CUPTI on this machine
+        print(f"(d) profiler: not available ({e})")
+        return
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    print(f"(d) profile of one sampling batch [{card}]: kernels "
+          f"{busy_us / 1e3:.3f} ms of a {window_us / 1e3:.3f} ms window "
+          f"(device busy {busy_us / window_us:.1%}, under the profiler); "
+          f"{sum(e.count for e in kernels)} launches; top kernels:")
+    for e in kernels[:12]:
+        print(f"      {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+              f"{e.key[:100]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    try:
+        from posteriflow_torch.inference.pipeline import (InferenceEngine,
+                                                          load_model)
+        from posteriflow_torch.ops import rqs as plain
+        from posteriflow_torch.ops import rqs_cuda
+        from posteriflow_torch.train.checkpoints import load_release
+    except ImportError as e:
+        print(f"chip_smoke: posteriflow_torch is not importable ({e}); run "
+              f"from the repository root", file=sys.stderr)
+        return 3
+    try:
+        t_start = time.perf_counter()
+        card = card_name_and_power()
+        print(card)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"(a) torch {torch.__version__} cuda {torch.version.cuda}, "
+              f"device {torch.cuda.get_device_name(0)}; "
+              f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+              f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+        t0 = time.perf_counter()
+        rqs_cuda.KERNEL.load()
+        built = rqs_cuda.KERNEL.build_seconds
+        print(f"(a) kernel library {rqs_cuda.library_path().name} ready in "
+              f"{time.perf_counter() - t0:.2f} s ("
+              f"{'nvcc %.2f s' % built if built is not None else 'cached'})"
+              f" [{card}]")
+        for line in rqs_cuda.KERNEL.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"    ptxas: {line.strip()}")
+
+        x, raw, errs = phase_kernel_check(torch, plain, rqs_cuda, card)
+
+        state_dict, cfg, _meta = load_release(RELEASE)
+        engine = load_model(RELEASE, device=DEVICE)
+        launches = phase_serve(torch, rqs_cuda, engine, card)
+        phase_reference(torch, InferenceEngine, state_dict, cfg, card)
+        bench = phase_bench(torch, plain, rqs_cuda, engine, x, raw, card)
+        phase_profile(torch, engine, bench, card)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+    k_ms, p_ms = bench["times"]["inverse"]
+    f_ms, fp_ms = bench["times"]["forward"]
+    kernels = [{
+        "name": "rqs_rows<16, inverse> (RQS spline, sampling)",
+        "route": "cuda",
+        "source": "posteriflow_torch/csrc/rqs.cu",
+        "replaces": "posteriflow_tpu/ops/pallas_rqs.py:118",
+        "launches": launches,
+        "max_abs_err": max(errs["inverse"][0], errs["forward"][0]),
+        "max_abs_err_logdet": max(errs["inverse"][1], errs["forward"][1]),
+        "ms": k_ms, "plain_ms": p_ms,
+        "forward_ms": f_ms, "forward_plain_ms": fp_ms,
+        "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
+        "library_ms": None,
+    }]
+    print(f"(e) done in {time.perf_counter() - t_start:.1f} s [{card}]; "
+          f"draws/s {bench['draws_per_s']:.0f}")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
