@@ -110,7 +110,7 @@ def _python_sources():
 def test_sources_import_nothing_of_the_jax_stack():
     """No import of the JAX stack, msgpack, yaml, ninja or the JAX package,
     by statement or by importlib, and no use of PyTorch's C++ extension
-    builder. (Docstrings may cite the JAX package's files by name.)"""
+    loader. (Docstrings may cite the JAX package's files by name.)"""
     bad = []
     for path in _python_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
