@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of posteriflow_torch: serve the 15-D flagship release on one
-NVIDIA GPU through the hand-written CUDA RQS kernel.
+NVIDIA GPU through the hand-written CUDA RQS kernel (csrc/rqs.cu: a TMA
+bulk-copy ring of row tiles, one thread per spline, the conditioner's
+derivative bias added in the kernel).
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -8,17 +10,22 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (any failure exits non-zero and prints no result line):
   (a) CUDA present (no CPU fallback); the card's name and power limit; TF32
-      off for matmuls and cuDNN; build the kernel with nvcc.
-  (b) the kernel against its plain PyTorch version at the flagship sampling
-      shape (N = 131072 rows, D = 7, K = 16), both directions, with tails
-      beyond ±5: |out| <= 2e-5 and |logdet| <= 2e-4.
+      off for matmuls and cuDNN; build the kernel with nvcc and print what
+      `-Xptxas -v` says of every instance (registers, spills): the K = 16
+      instances must spill nothing.
+  (b) the kernel against its plain PyTorch version on raw + bias at the
+      flagship sampling shape (N = 131072 rows, D = 7, K = 16) and at ragged
+      N (641, 5000: a part tile), both directions, with and without the
+      bias, with tails beyond ±5: out and logdet max |Δ| = 0.
   (c) serve 4 requests through `infer` (raw 32 s coloured Gaussian noise per
       detector from the design ASD, 5000 draws, ranks 0, 1, 0, 1); the
       launch counter must grow by one per flow layer per request. The
       served path is then held against the port's plain CPU path on the
       same input and base draws (float32 and the release's bfloat16).
   (d) time one bench-shaped batch (8 events × 16384 draws) with CUDA
-      events, the kernel per launch beside its bound and the plain version.
+      events, the kernel per launch (µs, TB/s, share of its bound) beside
+      the plain version; profile the batch, which must hold no add of the
+      derivative bias over raw.
   (e) the kernel table and the device as JSON lines; the last line is
       {"ok": true, "device": {...}}.
 The script imports torch, numpy and scipy (through the port) only.
@@ -39,7 +46,10 @@ RELEASE = "model_release/npe_r7_best"
 SAMPLE_RATE = 4096
 DETECTORS = ("H1", "L1", "V1")
 N_ROWS, D_TR, K_BINS, TAIL = 131072, 7, 16, 5.0   # flagship sampling shape
-TOL_OUT, TOL_LOGDET = 2e-5, 2e-4
+RAGGED_ROWS = (641, 5000)                         # a part tile at the end
+# the kernel sums and groups as the plain version does, built with
+# -fmad=false: both agree bit for bit
+TOL_OUT, TOL_LOGDET = 0.0, 0.0
 N_REQUESTS, N_SAMPLES = 4, 5000
 BENCH_EVENTS, BENCH_DRAWS = 8, 16384              # bench.py:45-46
 N_REF_DRAWS = 256
@@ -85,17 +95,17 @@ def coloured_noise(seed: int, seconds: float = 32.0,
 
 
 def rqs_bytes(n: int, d: int, k: int) -> int:
-    """Bytes the spline must move: x and raw read once, out and logdet
-    written once (float32)."""
-    return 4 * (n * d + n * d * (3 * k - 1) + n * d + n)
+    """Bytes the spline must move: x, raw and the bias read once, out and
+    logdet written once (float32)."""
+    return 4 * (n * d + n * d * (3 * k - 1) + 3 * k - 1 + n * d + n)
 
 
 def rqs_ops(n: int, d: int, k: int) -> int:
     """f32 operations of one spline call, counted per (row, dim) from the
     kernel's source: two softmaxes (~6K each), two knot cumsums (~2K
-    each), K-1 softplus (~3 each), K-1 bin compares, 6(K-1) selects and
-    ~40 for the rational-quadratic map and its log-derivative."""
-    return n * d * (26 * k + 40)
+    each), the bias add (3K), K-1 bin compares, 4K selects, two softplus
+    and ~50 for the rational-quadratic map and its log-derivative."""
+    return n * d * (24 * k + 56)
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -114,37 +124,74 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def phase_kernel_check(torch, plain, rqs_cuda, card):
-    """(b) kernel vs plain version at the flagship sampling shape."""
-    rng = np.random.default_rng(0)
+def phase_ptxas(rqs_cuda):
+    """(a) registers and spills of every kernel instance, from the build's
+    `-Xptxas -v` output; the K = 16 instances (the flagship's) must not
+    spill."""
+    insts = rqs_cuda.ptxas_instances(rqs_cuda.KERNEL.build_log)
+    check(len(insts) == 4 * len(rqs_cuda.SUPPORTED_BINS),
+          f"ptxas reported {len(insts)} kernel instances")
+    for i in insts:
+        check("registers" in i and "spill_stores" in i,
+              f"ptxas report incomplete: {i}")
+        print(f"    ptxas: rqs_tile<{i['k']}, "
+              f"{'inverse' if i['inverse'] else 'forward'}, "
+              f"{'bias' if i['bias'] else 'no bias'}>: {i['registers']} "
+              f"registers, {i['stack']} B stack, {i['spill_stores']} B spill "
+              f"stores, {i['spill_loads']} B spill loads")
+        check(i["k"] != K_BINS or i["spill_stores"] == 0,
+              f"K={K_BINS} instance spills: {i}")
+
+
+def spline_inputs(torch, n: int, seed: int):
+    """As the repo's Pallas parity test draws them: |x| up to 6 (tails
+    beyond ±5), raw spline parameters N(0, 0.7²); a bias N(0, 0.5²) over
+    all 3K-1 channels."""
+    rng = np.random.default_rng(seed)
     n_raw = 3 * K_BINS - 1
-    # as the repo's Pallas parity test draws them: |x| up to 6 (tails beyond
-    # ±5), raw spline parameters N(0, 0.7²)
-    x = torch.from_numpy(np.clip(rng.standard_normal((N_ROWS, D_TR)) * 2.5,
+    x = torch.from_numpy(np.clip(rng.standard_normal((n, D_TR)) * 2.5,
                                  -6.0, 6.0).astype(np.float32)).to(DEVICE)
-    raw = torch.from_numpy((rng.standard_normal((N_ROWS, D_TR, n_raw))
+    raw = torch.from_numpy((rng.standard_normal((n, D_TR, n_raw))
                             * 0.7).astype(np.float32)).to(DEVICE)
-    frac_tail = float((x.abs() > TAIL).float().mean())
+    bias = torch.from_numpy((rng.standard_normal(n_raw) * 0.5)
+                            .astype(np.float32)).to(DEVICE)
+    return x, raw, bias
+
+
+def phase_kernel_check(torch, plain, rqs_cuda, card):
+    """(b) kernel vs plain version at the flagship sampling shape and at
+    ragged N, both directions, with and without the bias."""
     errs = {}
-    for inverse in (False, True):
-        k_out, k_ld = rqs_cuda.KERNEL.launch(
-            x, raw.reshape(N_ROWS, -1), K_BINS, TAIL, inverse)
-        p_fn = plain.rqs_inverse if inverse else plain.rqs_forward
-        p_out, p_ld = p_fn(x, raw, K_BINS, TAIL)
-        torch.cuda.synchronize()
-        e_out = float((k_out - p_out).abs().max())
-        e_ld = float((k_ld - p_ld).abs().max())
-        name = "inverse" if inverse else "forward"
-        print(f"(b) kernel vs plain, {name}, N={N_ROWS} D={D_TR} K={K_BINS} "
-              f"(tails: {frac_tail:.4f} of x beyond ±{TAIL:g}): "
-              f"max|Δout| {e_out:.3e} (tol {TOL_OUT:g}), "
-              f"max|Δlogdet| {e_ld:.3e} (tol {TOL_LOGDET:g})")
-        check(math.isfinite(e_out) and e_out <= TOL_OUT,
-              f"kernel {name} out differs by {e_out}")
-        check(math.isfinite(e_ld) and e_ld <= TOL_LOGDET,
-              f"kernel {name} logdet differs by {e_ld}")
-        errs[name] = (e_out, e_ld)
-    return x, raw, errs
+    flagship = None
+    for n in (N_ROWS, *RAGGED_ROWS):
+        x, raw, bias = spline_inputs(torch, n, seed=n)
+        if n == N_ROWS:
+            flagship = (x, raw, bias)
+        frac_tail = float((x.abs() > TAIL).float().mean())
+        for b in (None, bias):
+            for inverse in (False, True):
+                k_out, k_ld = rqs_cuda.KERNEL.launch(
+                    x, raw.reshape(n, -1), K_BINS, TAIL, inverse, bias=b)
+                p_fn = plain.rqs_inverse if inverse else plain.rqs_forward
+                p_out, p_ld = p_fn(x, raw if b is None else raw + b, K_BINS,
+                                   TAIL)
+                torch.cuda.synchronize()
+                e_out = float((k_out - p_out).abs().max())
+                e_ld = float((k_ld - p_ld).abs().max())
+                name = "inverse" if inverse else "forward"
+                print(f"(b) kernel vs plain, {name}, "
+                      f"{'bias' if b is not None else 'no bias'}, N={n} "
+                      f"D={D_TR} K={K_BINS} (tails: {frac_tail:.4f} of x "
+                      f"beyond ±{TAIL:g}): max|Δout| {e_out:.3e} (tol "
+                      f"{TOL_OUT:g}), max|Δlogdet| {e_ld:.3e} (tol "
+                      f"{TOL_LOGDET:g})")
+                check(math.isfinite(e_out) and e_out <= TOL_OUT,
+                      f"kernel {name} N={n} out differs by {e_out}")
+                check(math.isfinite(e_ld) and e_ld <= TOL_LOGDET,
+                      f"kernel {name} N={n} logdet differs by {e_ld}")
+                prev = errs.get(name, (0.0, 0.0))
+                errs[name] = (max(prev[0], e_out), max(prev[1], e_ld))
+    return (*flagship, errs)
 
 
 def phase_serve(torch, rqs_cuda, engine, card):
@@ -228,7 +275,7 @@ def phase_reference(torch, engine_cls, state_dict, cfg, card):
         check(d_lq <= t_lq, f"{dt}: log q differs by {d_lq}")
 
 
-def phase_bench(torch, plain, rqs_cuda, engine, x, raw, card):
+def phase_bench(torch, plain, rqs_cuda, engine, x, raw, bias, card):
     """(d) one bench-shaped batch, and the kernel alone at its shape."""
     from posteriflow_torch.inference.preprocessing import prepare_real
     preps = [prepare_real(coloured_noise(seed=200 + i),
@@ -253,14 +300,23 @@ def phase_bench(torch, plain, rqs_cuda, engine, x, raw, card):
     draws_per_s = n_draws / (smp_ms * 1e-3)
 
     raw2 = raw.reshape(N_ROWS, -1)
+    biased = raw + bias
     times = {}
-    for inverse in (True, False):
-        name = "inverse" if inverse else "forward"
-        p_fn = plain.rqs_inverse if inverse else plain.rqs_forward
-        times[name] = (
-            cuda_time_ms(lambda: rqs_cuda.KERNEL.launch(
-                x, raw2, K_BINS, TAIL, inverse), reps=20),
-            cuda_time_ms(lambda: p_fn(x, raw, K_BINS, TAIL), reps=5))
+    # the main path's call (bias fused), then the kernel without the bias
+    for b in (bias, None):
+        for inverse in (True, False):
+            name = (("inverse" if inverse else "forward")
+                    + ("" if b is not None else " no bias"))
+            p_fn = plain.rqs_inverse if inverse else plain.rqs_forward
+            p_raw = raw if b is None else biased
+            times[name] = (
+                cuda_time_ms(lambda: rqs_cuda.KERNEL.launch(
+                    x, raw2, K_BINS, TAIL, inverse, bias=b), reps=20),
+                cuda_time_ms(lambda: p_fn(x, p_raw, K_BINS, TAIL), reps=5))
+    # what this card's memory gives one plain read of raw: the yardstick
+    # for the kernel's rate beside the data sheet's 3.35 TB/s
+    read_ms = cuda_time_ms(lambda: torch.sum(raw), reps=20)
+    read_tb_s = raw.numel() * 4 / (read_ms * 1e-3) / 1e12
     nbytes = rqs_bytes(N_ROWS, D_TR, K_BINS)
     nops = rqs_ops(N_ROWS, D_TR, K_BINS)
     bound_ms = max(nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOPS) * 1e3
@@ -274,7 +330,13 @@ def phase_bench(torch, plain, rqs_cuda, engine, x, raw, card):
               f"kernel {k_ms * 1e3:.1f} us/launch, plain {p_ms * 1e3:.1f} us, "
               f"bound {bound_ms * 1e3:.1f} us ({bound_by}: {nbytes} B at "
               f"3.35 TB/s, {nops} f32 ops at 67 TFLOP/s), kernel at "
-              f"{nbytes / (k_ms * 1e-3) / 1e12:.3f} TB/s")
+              f"{nbytes / (k_ms * 1e-3) / 1e12:.3f} TB/s, "
+              f"{bound_ms / k_ms:.1%} of its bound")
+    print(f"(d) torch.sum over raw ({raw.numel() * 4} B read once) "
+          f"[{card}]: {read_ms * 1e3:.1f} us, {read_tb_s:.3f} TB/s; the "
+          f"inverse kernel moves its bytes at "
+          f"{nbytes / (times['inverse'][0] * 1e-3) / 1e12 / read_tb_s:.1%} "
+          f"of that rate")
     return {"encode_ms": enc_ms, "sampling_ms": smp_ms,
             "draws_per_s": draws_per_s, "per_batch": per_batch,
             "times": times, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -283,11 +345,17 @@ def phase_bench(torch, plain, rqs_cuda, engine, x, raw, card):
 
 def phase_profile(torch, engine, bench, card):
     """Device time of one bench batch by kernel (torch.profiler): the busy
-    share of the profiled window and the kernels that take most of it."""
+    share of the profiled window and the kernels that take most of it; and
+    the operators that read a tensor of raw's size, among which no add of
+    the derivative bias may be left (the kernel adds it)."""
     from torch.profiler import ProfilerActivity, profile
+    flow = engine.model.flow
+    n_raw = 3 * flow.num_bins - 1
+    raw_numel = (BENCH_EVENTS * BENCH_DRAWS * (flow.features - flow.n_id)
+                 * n_raw)
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
             engine.sample_posterior(bench["ctx"], 0, BENCH_DRAWS,
                                     generator=bench["gen"])
@@ -298,6 +366,18 @@ def phase_profile(torch, engine, bench, card):
     except RuntimeError as e:           # no CUPTI on this machine
         print(f"(d) profiler: not available ({e})")
         return
+    on_raw, bias_adds = {}, 0
+    for e in prof.events():
+        shapes = [s for s in (e.input_shapes or []) if isinstance(s, list)
+                  and all(isinstance(v, int) for v in s)]
+        if any(s and math.prod(s) == raw_numel for s in shapes):
+            on_raw[e.name] = on_raw.get(e.name, 0) + 1
+            if e.name in ("aten::add", "aten::add_") and [n_raw] in shapes:
+                bias_adds += 1
+    print(f"(d) operators reading a tensor of raw's {raw_numel} floats "
+          f"({raw_numel * 4 / 1e6:.0f} MB) in one batch: "
+          f"{dict(sorted(on_raw.items()))}; derivative-bias adds {bias_adds}")
+    check(bias_adds == 0, f"{bias_adds} derivative-bias passes over raw left")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_us = sum(e.self_device_time_total for e in kernels)
     print(f"(d) profile of one sampling batch [{card}]: kernels "
@@ -342,17 +422,17 @@ def main() -> int:
               f"{time.perf_counter() - t0:.2f} s ("
               f"{'nvcc %.2f s' % built if built is not None else 'cached'})"
               f" [{card}]")
-        for line in rqs_cuda.KERNEL.build_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"    ptxas: {line.strip()}")
+        phase_ptxas(rqs_cuda)
 
-        x, raw, errs = phase_kernel_check(torch, plain, rqs_cuda, card)
+        x, raw, bias, errs = phase_kernel_check(torch, plain, rqs_cuda,
+                                                card)
 
         state_dict, cfg, _meta = load_release(RELEASE)
         engine = load_model(RELEASE, device=DEVICE)
         launches = phase_serve(torch, rqs_cuda, engine, card)
         phase_reference(torch, InferenceEngine, state_dict, cfg, card)
-        bench = phase_bench(torch, plain, rqs_cuda, engine, x, raw, card)
+        bench = phase_bench(torch, plain, rqs_cuda, engine, x, raw, bias,
+                            card)
         phase_profile(torch, engine, bench, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -361,7 +441,7 @@ def main() -> int:
     k_ms, p_ms = bench["times"]["inverse"]
     f_ms, fp_ms = bench["times"]["forward"]
     kernels = [{
-        "name": "rqs_rows<16, inverse> (RQS spline, sampling)",
+        "name": "rqs_tile<16, inverse, bias> (RQS spline, sampling)",
         "route": "cuda",
         "source": "posteriflow_torch/csrc/rqs.cu",
         "replaces": "posteriflow_tpu/ops/pallas_rqs.py:118",
@@ -370,6 +450,8 @@ def main() -> int:
         "max_abs_err_logdet": max(errs["inverse"][1], errs["forward"][1]),
         "ms": k_ms, "plain_ms": p_ms,
         "forward_ms": f_ms, "forward_plain_ms": fp_ms,
+        "no_bias_ms": bench["times"]["inverse no bias"][0],
+        "forward_no_bias_ms": bench["times"]["forward no bias"][0],
         "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
         "library_ms": None,
     }]

@@ -6,69 +6,186 @@
 // (:118, pallas_call at :136; body _spline_tile :37-106 and _kernel
 // :109-115; entry points pallas_rqs_forward :164 and pallas_rqs_inverse
 // :171). It computes what the plain version posteriflow_torch/ops/rqs.py
-// computes, and follows that version where the Pallas body differs: the bin
-// width is x_hi - x_lo of the pinned knots, not pick(w)·2B.
+// computes on raw + bias, and follows that version where the Pallas body
+// differs: the bin width is x_hi - x_lo of the pinned knots, not pick(w)·2B.
 //
-// Per row of x [N, D] with raw [N, D·(3K-1)], for each of the D dims:
-// softmax widths and heights with a 1e-3 minimum; knot cumsum on [-B, B]
-// with the end knots pinned to ±B; interior derivatives softplus + 1e-3,
-// boundary derivatives 1; bin search (count of interior knots <= x); the RQ
-// map (forward) or the stable quadratic root (inverse); log|dy/dx|; identity
-// tails outside ±B. The logdet is summed over D in the thread: no atomics.
+// Per (row, dim) spline of x [N, D] with raw [N, D·(3K-1)]: softmax widths
+// and heights with a 1e-3 minimum; knot cumsum on [-B, B] with the end knots
+// pinned to ±B; interior derivatives softplus + 1e-3, boundary derivatives
+// 1; bin search (count of interior knots <= x); the RQ map (forward) or the
+// stable quadratic root (inverse); log|dy/dx|; identity tails outside ±B.
+// The logdet is summed over D per row.
 //
-// Bound: memory. A call reads N·D·(3K-1) + N·D floats and writes N·D + N:
-// at the flagship sampling shape (N = 131072, D = 7, K = 16) that is 180 MB,
-// about 54 us at 3.35 TB/s, against about 0.5 GFLOP of f32 arithmetic.
-// Design: one thread per row, K a template parameter so that the K-bin
-// softmax, cumsum, knots and bin selection unroll into registers; no shared
-// memory. Neighbouring threads read rows 4·D·(3K-1) bytes apart, so the
-// loads are not coalesced: this first version is simple and right, not fast.
-// Every sum runs left to right and every expression groups as in the plain
-// version, and the library is built with -fmad=false: an inverse output moves
-// by a knot's rounding error over the bin's slope, so the two versions must
-// form the knots bit for bit alike to agree at 2e-5.
+// Bound: memory. A call reads N·D·(3K-1) + N·D + 3K-1 floats and writes
+// N·D + N: at the flagship sampling shape (N = 131072, D = 7, K = 16) that
+// is 180 MB, about 54 us at 3.35 TB/s. Its f32 work, near two thousand
+// instructions a spline as compiled (K-way softmax twice with IEEE
+// divisions, two softplus, the map), fills most of that time in issue
+// slots, so the loads must stream while the splines are computed.
+//
+// Design:
+// - A ring of kStages stages in shared memory, each one tile: rows_per_tile
+//   consecutive rows of raw (one contiguous span) and of x, brought in by
+//   two TMA bulk copies (cp.async.bulk, L2 evict-first: each byte is read
+//   once) that complete on the stage's mbarrier. Blocks are persistent and
+//   walk tiles blockIdx.x + i·gridDim.x; while a block computes tile i,
+//   tile i+1 is in flight, and the barrier after tile i frees its stage
+//   for tile i+2. The bytes in flight no longer depend on how many
+//   register-heavy threads fit on an SM: one stage of a block is 48 KB at
+//   the flagship shape. rows_per_tile is a multiple of 4, so every copy is
+//   16-B aligned and a multiple of 16 B; the ragged last tile (N mod
+//   rows_per_tile rows) is read with coalesced plain loads.
+// - One thread per (row, dim) spline. Thread t of a tile takes word t·(3K-1)
+//   of the stage; 3K-1 is odd, so a warp's 32 threads hit 32 banks. x is
+//   read from the stage and out written at row0·D + t: coalesced. Each
+//   spline's logdet goes to shared memory (two turns, so one barrier a tile
+//   serves), and one thread per row sums the row's D terms in dim order.
+// - The conditioner's bias [3K-1] is added to each raw value as it is read
+//   from shared memory (one f32 add, as PyTorch's elementwise +), which
+//   saves the separate pass over raw that the add would otherwise cost.
+// - The bin search runs on the knots of the searched axis only; the other
+//   axis's knots are formed in turn and the two around the bin kept, and
+//   softplus is taken for the bin's two interior derivatives alone.
+// - K is a template parameter, so the K-bin softmax, cumsum and selection
+//   unroll into registers; D is a runtime argument.
+// Every sum runs left to right (the logdet over D too) and every expression
+// groups as in the plain version, and the library is built with
+// -fmad=false: an inverse output moves by a knot's rounding error over the
+// bin's slope, so the two versions form the knots bit for bit alike and
+// their outputs and logdets agree exactly.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr double kMinBinWidth = 1e-3;
 constexpr double kMinBinHeight = 1e-3;
 constexpr float kMinDerivative = 1e-3f;
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kStages = 2;
+constexpr int kBarrierBytes = 128;   // the stages' mbarriers, ahead of the ring
+constexpr int kMaxDevices = 64;
 
-// softmax over K raw values, then the 1e-3 minimum bin size
-template <int K>
-__device__ __forceinline__ void bin_sizes(const float* __restrict__ r,
-                                          float min_bin, float scale,
-                                          float (&out)[K]) {
-  float m = r[0];
+// Dynamic shared memory of a block: [mbarriers | stage 0 .. stage S-1 |
+// logdet per spline, two turns | bias]; a stage holds a tile's raw, then
+// its x. ops/rqs_cuda.py:smem_bytes mirrors it.
+long long smem_layout_bytes(int rows, int d, int k) {
+  const long long r = 3 * k - 1;
+  return kBarrierBytes + (long long)kStages * rows * d * (r + 1) * 4
+         + 2 * 4LL * rows * d + 4LL * r;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// A tile lands within microseconds; a wait of 2^24 tries means a copy that
+// was never issued, and the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 24)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// global -> shared, `bytes` a multiple of 16 at 16-B aligned addresses;
+// completion is counted on `bar`. The lines are marked evict-first in L2:
+// every byte is read once, and the stream should not push out what the
+// rest of the card keeps there.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)),
+         "l"(policy)
+      : "memory");
+}
+
+template <bool BIAS>
+__device__ __forceinline__ float raw_at(const float* r, const float* b,
+                                        int k) {
+  return BIAS ? r[k] + b[k] : r[k];
+}
+
+// e[k] = exp(v_k - max v) of K raw values; returns their sum, left to right
+template <int K, bool BIAS>
+__device__ __forceinline__ float softmax_exp(const float* r, const float* b,
+                                             float (&e)[K]) {
 #pragma unroll
-  for (int k = 1; k < K; ++k) m = fmaxf(m, r[k]);
+  for (int k = 0; k < K; ++k) e[k] = raw_at<BIAS>(r, b, k);
+  float m = e[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) m = fmaxf(m, e[k]);
   float sum = 0.f;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    out[k] = expf(r[k] - m);
-    sum += out[k];
+    e[k] = expf(e[k] - m);
+    sum += e[k];
   }
-#pragma unroll
-  for (int k = 0; k < K; ++k) out[k] = min_bin + scale * (out[k] / sum);
+  return sum;
 }
 
-// knots [K+1] on [-B, B]: -B, cumsum·2B - B, ..., pinned B
-template <int K>
-__device__ __forceinline__ void knots(const float (&size)[K], float bound,
-                                      float (&out)[K + 1]) {
+// knots [K+1] on [-B, B]: -B, cumsum(size)·2B - B, ..., pinned B, with
+// size = min_bin + scale·softmax
+template <int K, bool BIAS>
+__device__ __forceinline__ void knots(const float* r, const float* b,
+                                      float min_bin, float scale, float bound,
+                                      float (&kn)[K + 1]) {
+  float e[K];
+  const float sum = softmax_exp<K, BIAS>(r, b, e);
   const float two_b = 2.f * bound;
   float cs = 0.f;
-  out[0] = -bound;
+  kn[0] = -bound;
 #pragma unroll
   for (int k = 0; k < K - 1; ++k) {
-    cs += size[k];
-    out[k + 1] = cs * two_b - bound;
+    cs += min_bin + scale * (e[k] / sum);
+    kn[k + 1] = cs * two_b - bound;
   }
-  out[K] = bound;
+  kn[K] = bound;
+}
+
+// knots idx and idx + 1 of the same construction, formed in turn
+template <int K, bool BIAS>
+__device__ __forceinline__ void knot_pair(const float* r, const float* b,
+                                          float min_bin, float scale,
+                                          float bound, int idx, float& lo,
+                                          float& hi) {
+  float e[K];
+  const float sum = softmax_exp<K, BIAS>(r, b, e);
+  const float two_b = 2.f * bound;
+  float cs = 0.f;
+  lo = -bound;
+  hi = bound;
+#pragma unroll
+  for (int k = 0; k < K - 1; ++k) {
+    cs += min_bin + scale * (e[k] / sum);
+    const float kn = cs * two_b - bound;
+    if (idx == k + 1) lo = kn;
+    if (idx == k) hi = kn;
+  }
 }
 
 __device__ __forceinline__ float softplus(float v) {
@@ -76,121 +193,242 @@ __device__ __forceinline__ float softplus(float v) {
   return v > 20.f ? v : log1pf(expf(v));
 }
 
-template <int K, bool INVERSE>
-__global__ void __launch_bounds__(kThreads)
-rqs_rows(const float* __restrict__ x, const float* __restrict__ raw,
-         float* __restrict__ out, float* __restrict__ logdet, int n, int d,
-         float bound) {
-  constexpr int R = 3 * K - 1;
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
+// One spline: r -> its 3K-1 raw values (b the bias), v the input.
+// Returns the output; *ld gets its log|dy/dx| (negated for the inverse,
+// 0 in the tails).
+template <int K, bool INVERSE, bool BIAS>
+__device__ __forceinline__ float spline(const float* r, const float* b,
+                                        float v, float bound, float* ld) {
   const float min_w = (float)kMinBinWidth;
   const float scale_w = (float)(1.0 - kMinBinWidth * K);
   const float min_h = (float)kMinBinHeight;
   const float scale_h = (float)(1.0 - kMinBinHeight * K);
+  const bool inside = fabsf(v) <= bound;
+  const float vs = fminf(fmaxf(v, -bound), bound);
 
-  const float* xr = x + row * d;
-  const float* rr = raw + row * (long long)d * R;
-  float* orow = out + row * d;
-  float ld_sum = 0.f;
-
-#pragma unroll 1
-  for (int j = 0; j < d; ++j) {
-    const float* r = rr + (long long)j * R;
-    float w[K], h[K];
-    bin_sizes<K>(r, min_w, scale_w, w);
-    bin_sizes<K>(r + K, min_h, scale_h, h);
-    float xk[K + 1], yk[K + 1], dk[K + 1];
-    knots<K>(w, bound, xk);
-    knots<K>(h, bound, yk);
-    dk[0] = 1.f;
-    dk[K] = 1.f;
-#pragma unroll
-    for (int k = 1; k < K; ++k) dk[k] = kMinDerivative + softplus(r[2 * K + k - 1]);
-
-    const float v = xr[j];
-    const bool inside = fabsf(v) <= bound;
-    const float vs = fminf(fmaxf(v, -bound), bound);
-
-    // bin index: count of interior knots <= v, then select that bin's ends
-    int idx = 0;
-#pragma unroll
-    for (int k = 1; k < K; ++k) idx += (vs >= (INVERSE ? yk[k] : xk[k])) ? 1 : 0;
-    float x_lo = xk[0], x_hi = xk[1], y_lo = yk[0], y_hi = yk[1];
-    float d_lo = dk[0], d_hi = dk[1];
-#pragma unroll
-    for (int k = 1; k < K; ++k) {
-      if (idx == k) {
-        x_lo = xk[k]; x_hi = xk[k + 1];
-        y_lo = yk[k]; y_hi = yk[k + 1];
-        d_lo = dk[k]; d_hi = dk[k + 1];
-      }
-    }
-
-    const float wb = x_hi - x_lo;
-    const float hb = y_hi - y_lo;
-    const float s = hb / wb;
-    const float dsum = d_hi + d_lo - 2.f * s;
-    float theta;
-    if (INVERSE) {
-      const float dy = vs - y_lo;
-      const float a = hb * (s - d_lo) + dy * dsum;
-      const float b = hb * d_lo - dy * dsum;
-      const float c = -s * dy;
-      const float disc = fmaxf(b * b - 4.f * a * c, 0.f);
-      theta = 2.f * c / (-b - sqrtf(disc) - 1e-30f);
-    } else {
-      theta = (vs - x_lo) / wb;
-    }
-    theta = fminf(fmaxf(theta, 0.f), 1.f);
-    const float t1m = 1.f - theta;
-    const float tt = theta * t1m;
-    const float denom = s + dsum * tt;
-    const float theta2 = theta * theta;
-    const float dydx = s * s * (d_hi * theta2 + 2.f * s * tt + d_lo * (t1m * t1m))
-                       / (denom * denom);
-    const float mapped = INVERSE ? x_lo + theta * wb
-                                 : y_lo + hb * (s * theta2 + d_lo * tt) / denom;
-    const float ld = logf(fmaxf(dydx, 1e-30f));
-    orow[j] = inside ? mapped : v;
-    ld_sum += inside ? (INVERSE ? -ld : ld) : 0.f;
+  // the searched axis: knots of y for the inverse, of x for the forward
+  float kn[K + 1];
+  if (INVERSE) {
+    knots<K, BIAS>(r + K, b + K, min_h, scale_h, bound, kn);
+  } else {
+    knots<K, BIAS>(r, b, min_w, scale_w, bound, kn);
   }
-  logdet[row] = ld_sum;
+  // bin index: count of interior knots <= v, then that bin's ends
+  int idx = 0;
+#pragma unroll
+  for (int k = 1; k < K; ++k) idx += (vs >= kn[k]) ? 1 : 0;
+  float s_lo = kn[0], s_hi = kn[1];
+#pragma unroll
+  for (int k = 1; k < K; ++k) {
+    if (idx == k) {
+      s_lo = kn[k];
+      s_hi = kn[k + 1];
+    }
+  }
+  float o_lo, o_hi;
+  if (INVERSE) {
+    knot_pair<K, BIAS>(r, b, min_w, scale_w, bound, idx, o_lo, o_hi);
+  } else {
+    knot_pair<K, BIAS>(r + K, b + K, min_h, scale_h, bound, idx, o_lo, o_hi);
+  }
+  const float x_lo = INVERSE ? o_lo : s_lo, x_hi = INVERSE ? o_hi : s_hi;
+  const float y_lo = INVERSE ? s_lo : o_lo, y_hi = INVERSE ? s_hi : o_hi;
+  // derivatives at the bin's ends: 1 at the boundary knots
+  const int i_lo = 2 * K + (idx > 0 ? idx - 1 : 0);
+  const int i_hi = 2 * K + (idx < K - 1 ? idx : K - 2);
+  const float d_lo =
+      idx == 0 ? 1.f : kMinDerivative + softplus(raw_at<BIAS>(r, b, i_lo));
+  const float d_hi =
+      idx == K - 1 ? 1.f : kMinDerivative + softplus(raw_at<BIAS>(r, b, i_hi));
+
+  const float wb = x_hi - x_lo;
+  const float hb = y_hi - y_lo;
+  const float s = hb / wb;
+  const float dsum = d_hi + d_lo - 2.f * s;
+  float theta;
+  if (INVERSE) {
+    const float dy = vs - y_lo;
+    const float a = hb * (s - d_lo) + dy * dsum;
+    const float bq = hb * d_lo - dy * dsum;
+    const float c = -s * dy;
+    const float disc = fmaxf(bq * bq - 4.f * a * c, 0.f);
+    theta = 2.f * c / (-bq - sqrtf(disc) - 1e-30f);
+  } else {
+    theta = (vs - x_lo) / wb;
+  }
+  theta = fminf(fmaxf(theta, 0.f), 1.f);
+  const float t1m = 1.f - theta;
+  const float tt = theta * t1m;
+  const float denom = s + dsum * tt;
+  const float theta2 = theta * theta;
+  const float dydx = s * s * (d_hi * theta2 + 2.f * s * tt + d_lo * (t1m * t1m))
+                     / (denom * denom);
+  const float mapped = INVERSE ? x_lo + theta * wb
+                               : y_lo + hb * (s * theta2 + d_lo * tt) / denom;
+  const float l = logf(fmaxf(dydx, 1e-30f));
+  *ld = inside ? (INVERSE ? -l : l) : 0.f;
+  return inside ? mapped : v;
+}
+
+template <int K, bool INVERSE, bool BIAS>
+__global__ void __launch_bounds__(kThreads, 2)
+rqs_tile(const float* __restrict__ x, const float* __restrict__ raw,
+         const float* __restrict__ bias, float* __restrict__ out,
+         float* __restrict__ logdet, int n, int d, int rows_per_tile,
+         float bound) {
+  constexpr int R = 3 * K - 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  float* ring = reinterpret_cast<float*>(smem + kBarrierBytes);
+  const int tile_splines = rows_per_tile * d;
+  const int stage_floats = tile_splines * (R + 1);   // raw, then x
+  float* s_ld = ring + kStages * stage_floats;       // two turns of logdets
+  float* s_bias = s_ld + 2 * tile_splines;
+
+  const int n_tiles = (n + rows_per_tile - 1) / rows_per_tile;
+  const int n_full = n / rows_per_tile;        // tiles the bulk copy takes
+  const uint32_t raw_bytes = (uint32_t)(tile_splines * R) * 4u;
+  const uint32_t x_bytes = (uint32_t)tile_splines * 4u;
+  const int mine = (int)blockIdx.x < n_tiles
+                       ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (BIAS) {
+    for (int k = threadIdx.x; k < R; k += blockDim.x) s_bias[k] = bias[k];
+  }
+  __syncthreads();
+
+  // thread 0: tile j of this block, raw and x, into stage j % kStages, if
+  // it is full
+  auto issue = [&](int j) {
+    const int tile = (int)blockIdx.x + j * (int)gridDim.x;
+    if (j < mine && tile < n_full) {
+      uint64_t* bar = &full[j % kStages];
+      float* st = ring + (j % kStages) * stage_floats;
+      mbar_expect_tx(bar, raw_bytes + x_bytes);
+      bulk_load(st, raw + (long long)tile * tile_splines * R, raw_bytes, bar);
+      bulk_load(st + tile_splines * R, x + (long long)tile * tile_splines,
+                x_bytes, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < kStages; ++j) issue(j);
+  }
+
+  uint32_t phase = 0;   // bit s: parity of stage s's next completion
+  for (int j = 0; j < mine; ++j) {
+    const int tile = (int)blockIdx.x + j * (int)gridDim.x;
+    const int s = j % kStages;
+    float* st = ring + s * stage_floats;
+    float* st_x = st + tile_splines * R;
+    float* ld_turn = s_ld + (j & 1) * tile_splines;
+    const long long row0 = (long long)tile * rows_per_tile;
+    const int rows = (int)min((long long)rows_per_tile, (long long)n - row0);
+    const int splines = rows * d;
+    if (tile < n_full) {
+      mbar_wait(&full[s], (phase >> s) & 1u);
+      phase ^= 1u << s;
+    } else {
+      // the ragged last tile: coalesced plain loads
+      const float* src = raw + row0 * d * R;
+      for (int i = threadIdx.x; i < splines * R; i += blockDim.x) {
+        st[i] = src[i];
+      }
+      for (int i = threadIdx.x; i < splines; i += blockDim.x) {
+        st_x[i] = x[row0 * d + i];
+      }
+      __syncthreads();
+    }
+    for (int t = threadIdx.x; t < splines; t += blockDim.x) {
+      float ld;
+      out[row0 * d + t] =
+          spline<K, INVERSE, BIAS>(st + t * R, s_bias, st_x[t], bound, &ld);
+      ld_turn[t] = ld;
+    }
+    // stage s is read and this turn's logdets written: the stage takes tile
+    // j + kStages while the rows are summed and tile j + 1 is computed
+    __syncthreads();
+    if (threadIdx.x == 0) issue(j + kStages);
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+      float sum = ld_turn[r * d];
+      for (int jd = 1; jd < d; ++jd) sum += ld_turn[r * d + jd];
+      logdet[row0 + r] = sum;
+    }
+  }
+}
+
+struct Launch {
+  const float* x;
+  const float* raw;
+  const float* bias;
+  float* out;
+  float* logdet;
+  int n, d, rows_per_tile, grid, smem_bytes, device;
+  float bound;
+  cudaStream_t stream;
+};
+
+template <int K, bool INVERSE, bool BIAS>
+int launch(const Launch& a) {
+  // the most dynamic shared memory this instance was allowed, by device
+  static int allowed[kMaxDevices] = {};
+  auto* kernel = rqs_tile<K, INVERSE, BIAS>;
+  if (a.smem_bytes > allowed[a.device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed[a.device] = a.smem_bytes;
+  }
+  kernel<<<a.grid, kThreads, a.smem_bytes, a.stream>>>(
+      a.x, a.raw, a.bias, a.out, a.logdet, a.n, a.d, a.rows_per_tile,
+      a.bound);
+  return (int)cudaGetLastError();
 }
 
 template <int K>
-void launch_rows(const float* x, const float* raw, float* out, float* logdet,
-                 int n, int d, float bound, int inverse, cudaStream_t stream) {
-  const dim3 block(kThreads);
-  const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
+int dispatch(const Launch& a, bool inverse) {
   if (inverse) {
-    rqs_rows<K, true><<<grid, block, 0, stream>>>(x, raw, out, logdet, n, d, bound);
-  } else {
-    rqs_rows<K, false><<<grid, block, 0, stream>>>(x, raw, out, logdet, n, d, bound);
+    return a.bias ? launch<K, true, true>(a) : launch<K, true, false>(a);
   }
+  return a.bias ? launch<K, false, true>(a) : launch<K, false, false>(a);
 }
 
 }  // namespace
 
-// x [n, d], raw [n, d·(3k-1)], out [n, d], logdet [n]: contiguous float32 on
-// `device`. Returns the CUDA error code of the launch (0 on success).
-extern "C" int pf_rqs_launch(const void* x, const void* raw, void* out,
-                             void* logdet, int n, int d, int k,
-                             float tail_bound, int inverse, int device,
+// x [n, d] and raw [n, d·(3k-1)] (both 16-B aligned), out [n, d],
+// logdet [n]:
+// contiguous float32 on `device`; bias [3k-1] float32 or null. The tile plan
+// (rows_per_tile, grid, smem_bytes) comes from ops/rqs_cuda.py:tile_plan.
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int pf_rqs_launch(const void* x, const void* raw, const void* bias,
+                             void* out, void* logdet, int n, int d, int k,
+                             float tail_bound, int inverse, int rows_per_tile,
+                             int grid, int smem_bytes, int device,
                              void* stream) {
+  if (n <= 0 || d <= 0 || rows_per_tile <= 0 || rows_per_tile % 4 != 0
+      || grid <= 0 || device < 0 || device >= kMaxDevices
+      || reinterpret_cast<uintptr_t>(raw) % 16 != 0
+      || reinterpret_cast<uintptr_t>(x) % 16 != 0
+      || smem_bytes < smem_layout_bytes(rows_per_tile, d, k)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const float* xf = static_cast<const float*>(x);
-  const float* rf = static_cast<const float*>(raw);
-  float* of = static_cast<float*>(out);
-  float* lf = static_cast<float*>(logdet);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Launch a{static_cast<const float*>(x), static_cast<const float*>(raw),
+                 static_cast<const float*>(bias), static_cast<float*>(out),
+                 static_cast<float*>(logdet), n, d, rows_per_tile, grid,
+                 smem_bytes, device, tail_bound,
+                 static_cast<cudaStream_t>(stream)};
   switch (k) {
-    case 4: launch_rows<4>(xf, rf, of, lf, n, d, tail_bound, inverse, s); break;
-    case 8: launch_rows<8>(xf, rf, of, lf, n, d, tail_bound, inverse, s); break;
-    case 16: launch_rows<16>(xf, rf, of, lf, n, d, tail_bound, inverse, s); break;
-    case 32: launch_rows<32>(xf, rf, of, lf, n, d, tail_bound, inverse, s); break;
+    case 4: return dispatch<4>(a, inverse != 0);
+    case 8: return dispatch<8>(a, inverse != 0);
+    case 16: return dispatch<16>(a, inverse != 0);
+    case 32: return dispatch<32>(a, inverse != 0);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

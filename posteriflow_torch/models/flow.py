@@ -4,7 +4,9 @@ Port of posteriflow_tpu/models/flow.py:33-172. Each layer: fixed
 permutation -> split into identity and transform halves -> conditioner MLP
 (identity half + context) emits raw spline parameters -> RQS bijection on
 the transform half. The spline goes through ops/rqs_cuda.py, which runs the
-CUDA kernel on CUDA tensors and the plain version on CPU tensors.
+CUDA kernel on CUDA tensors and the plain version on CPU tensors; the
+conditioner's derivative bias is handed to it rather than added to the raw
+parameters first, so that the kernel adds it as it reads them.
 
 Module names follow the flax tree (`cond_{i}` with `in_x`, `in_ctx`,
 `mid_{i}`, `out`) so that released weights load one to one.
@@ -89,15 +91,20 @@ class Conditioner(nn.Module):
         deriv_bias[2 * num_bins:] = _DERIV_BIAS
         self.register_buffer("deriv_bias", deriv_bias, persistent=False)
 
-    def forward(self, x_id: torch.Tensor,
+    def project(self, x_id: torch.Tensor,
                 context: torch.Tensor) -> torch.Tensor:
+        """The raw parameters before the derivative bias [..., n_transform,
+        3K-1]; the spline kernel adds `deriv_bias` as it reads them."""
         dt = self.compute_dtype
         h = gelu(dense(self.in_x, x_id, dt) + dense(self.in_ctx, context, dt))
         for i in range(self.n_mid):
             h = gelu(dense(getattr(self, f"mid_{i}"), h, dt))
         out = F.linear(h.float(), self.out.weight, self.out.bias)
-        out = out.reshape(*out.shape[:-1], self.n_transform, -1)
-        return out + self.deriv_bias
+        return out.reshape(*out.shape[:-1], self.n_transform, -1)
+
+    def forward(self, x_id: torch.Tensor,
+                context: torch.Tensor) -> torch.Tensor:
+        return self.project(x_id, context) + self.deriv_bias
 
 
 class CouplingNSF(nn.Module):
@@ -134,16 +141,18 @@ class CouplingNSF(nn.Module):
     def _layer_forward(self, i: int, y: torch.Tensor, context: torch.Tensor):
         y = y[..., getattr(self, f"perm_{i}")]
         y_id, y_tr = y[..., :self.n_id], y[..., self.n_id:]
-        raw = self._cond(i)(y_id, context)
-        z_tr, ld = rqs_cuda.rqs_forward(y_tr, raw, self.num_bins,
-                                        self.tail_bound)
+        cond = self._cond(i)
+        z_tr, ld = rqs_cuda.rqs_forward(y_tr, cond.project(y_id, context),
+                                        self.num_bins, self.tail_bound,
+                                        bias=cond.deriv_bias)
         return torch.cat([y_id, z_tr], dim=-1), ld
 
     def _layer_inverse(self, i: int, z: torch.Tensor, context: torch.Tensor):
         z_id, z_tr = z[..., :self.n_id], z[..., self.n_id:]
-        raw = self._cond(i)(z_id, context)
-        y_tr, ld = rqs_cuda.rqs_inverse(z_tr, raw, self.num_bins,
-                                        self.tail_bound)
+        cond = self._cond(i)
+        y_tr, ld = rqs_cuda.rqs_inverse(z_tr, cond.project(z_id, context),
+                                        self.num_bins, self.tail_bound,
+                                        bias=cond.deriv_bias)
         y = torch.cat([z_id, y_tr], dim=-1)
         return y[..., getattr(self, f"inv_perm_{i}")], ld
 

@@ -8,7 +8,7 @@ runs on CPU tensors.
 Identity tails outside [-tail_bound, tail_bound] (logdet 0 there).
 Shapes: inputs [..., D]; raw spline parameters [..., D, 3K-1] (K widths,
 K heights, K-1 interior derivatives). Returns (out [..., D], logdet [...])
-with the logdet summed over D.
+with the logdet summed over D left to right, as the CUDA kernel sums it.
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def rqs_forward(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
     y = torch.where(inside, y_in, x)
     ld = torch.where(inside, torch.log(torch.clamp(dydx, min=1e-30)),
                      torch.zeros_like(dydx))
-    return y, torch.sum(ld, dim=-1)
+    return y, _sum_in_order(ld)
 
 
 def rqs_inverse(y: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
@@ -148,4 +148,4 @@ def rqs_inverse(y: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
     x = torch.where(inside, x_in, y)
     ld = torch.where(inside, -torch.log(torch.clamp(dydx, min=1e-30)),
                      torch.zeros_like(dydx))
-    return x, torch.sum(ld, dim=-1)
+    return x, _sum_in_order(ld)

@@ -1,11 +1,13 @@
 """The RQS kernel of csrc/rqs.cu: build with nvcc, bind with ctypes, launch.
 
-`rqs_forward` / `rqs_inverse` take the signature of ops/rqs.py and choose
-by the tensor's device: a CPU tensor goes through the plain PyTorch
-version, a CUDA tensor through the kernel (or an exception; there is no
-fallback). The kernel replaces the TPU kernel
-posteriflow_tpu/ops/pallas_rqs.py:_pallas_rqs; csrc/rqs.cu says what bounds
-it and how it is laid out.
+`rqs_forward` / `rqs_inverse` take the signature of ops/rqs.py plus an
+optional `bias` [3K-1] added to the raw parameters, and choose by the
+tensor's device: a CPU tensor goes through the plain PyTorch version on
+raw + bias, a CUDA tensor through the kernel, which adds the bias as it
+reads raw (or an exception; there is no fallback). The kernel replaces the
+TPU kernel posteriflow_tpu/ops/pallas_rqs.py:_pallas_rqs; csrc/rqs.cu says
+what bounds it and how it is laid out, and `tile_plan` below sizes its ring
+of row tiles.
 
 The shared library is compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -21,9 +23,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
@@ -39,6 +43,16 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-fmad=false")
 SUPPORTED_BINS = (4, 8, 16, 32)      # template instances in csrc/rqs.cu
+# csrc/rqs.cu: kThreads, kStages, kBarrierBytes, __launch_bounds__(256, 2)
+THREADS = 256
+STAGES = 2
+BARRIER_BYTES = 128
+BLOCKS_PER_SM = 2
+# Hopper: the shared memory an SM divides among its blocks, what the runtime
+# keeps of it for each block, and the most one block may take
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+SMEM_PER_BLOCK = 232448
 # the toolkit's standard install prefix, tried after CUDA_HOME and PATH
 _DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
@@ -73,6 +87,90 @@ def library_path() -> Path:
     return BUILD_DIR / f"librqs_{tag}.so"
 
 
+def stage_bytes(rows: int, d: int, k: int) -> int:
+    """One stage of the ring: a tile's raw [rows, D·(3K-1)] and its x
+    [rows, D], float32."""
+    return 4 * rows * d * 3 * k
+
+
+def smem_bytes(rows: int, d: int, k: int) -> int:
+    """Dynamic shared memory of one block (csrc/rqs.cu smem_layout_bytes):
+    the mbarriers, STAGES stages, a logdet per spline for two tiles and the
+    bias."""
+    return (BARRIER_BYTES + STAGES * stage_bytes(rows, d, k)
+            + 2 * 4 * rows * d + 4 * (3 * k - 1))
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """How one launch cuts N rows into tiles and blocks."""
+    rows_per_tile: int      # TR, a multiple of 4: a tile is 16-B aligned
+    full_tiles: int         # tiles the TMA bulk copy brings in
+    tail_rows: int          # N mod TR rows of the ragged last tile
+    stage_bytes: int        # one tile of raw and x, TR·D·3K floats
+    smem_bytes: int         # dynamic shared memory of a block
+    grid: int               # persistent blocks
+
+
+def tile_plan(n: int, d: int, k: int, sm_count: int) -> TilePlan:
+    """The launch's tile plan: as many rows a tile as give one spline a
+    thread (THREADS // D, down to a multiple of 4; at least 4, and then a
+    thread takes several), fewer where BLOCKS_PER_SM blocks of STAGES tiles
+    would not fit an SM's shared memory; one persistent block per tile up
+    to BLOCKS_PER_SM blocks an SM."""
+    if n < 0 or d < 1 or k not in SUPPORTED_BINS or sm_count < 1:
+        raise ValueError(f"no tile plan for n={n}, d={d}, k={k}, "
+                         f"sm_count={sm_count}")
+    rows = max(4, THREADS // d // 4 * 4)
+    budget = SMEM_PER_SM // BLOCKS_PER_SM - SMEM_RESERVED
+    while rows > 4 and smem_bytes(rows, d, k) > budget:
+        rows -= 4
+    smem = smem_bytes(rows, d, k)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"a tile of 4 rows at d={d}, k={k} needs {smem} B "
+                         f"of shared memory, more than {SMEM_PER_BLOCK}")
+    per_sm = min(BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED))
+    n_tiles = -(-n // rows)
+    return TilePlan(rows_per_tile=rows, full_tiles=n // rows,
+                    tail_rows=n % rows, stage_bytes=stage_bytes(rows, d, k),
+                    smem_bytes=smem,
+                    grid=max(1, min(n_tiles, per_sm * sm_count)))
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_INSTANCE = re.compile(r"rqs_tileILi(\d+)ELb([01])ELb([01])E")
+
+
+def ptxas_instances(log: str) -> list:
+    """What `-Xptxas -v` says of each rqs_tile<K, INVERSE, BIAS> instance:
+    [{"k", "inverse", "bias", "registers", "stack", "spill_stores",
+    "spill_loads"}, ...] in the order ptxas compiled them."""
+    found, cur = [], None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            inst = _INSTANCE.search(m.group(1))
+            cur = None
+            if inst:
+                cur = {"k": int(inst.group(1)), "inverse": inst.group(2) == "1",
+                       "bias": inst.group(3) == "1"}
+                found.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return found
+
+
 class RqsKernel:
     """The loaded library and its launch count.
 
@@ -81,15 +179,19 @@ class RqsKernel:
 
     def __init__(self):
         self._fn = None
+        self._sm_count = {}
         self.launches = 0
         self.build_seconds: Optional[float] = None   # None: library cached
         self.build_log = ""
 
     def load(self):
-        """Build (if the cached library is missing) and bind the launcher."""
+        """Build (if the cached library is missing) and bind the launcher.
+        The compiler's output is kept beside the library, so `build_log`
+        holds it whether or not this process built it."""
         if self._fn is not None:
             return self._fn
         so = library_path()
+        log = so.with_suffix(".log")
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -99,21 +201,33 @@ class RqsKernel:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed with code {proc.returncode}:"
                                    f"\n{proc.stdout}\n{proc.stderr}")
+            log.write_text(proc.stdout + proc.stderr)
             os.replace(tmp, so)
             self.build_seconds = time.perf_counter() - t0
-            self.build_log = proc.stdout + proc.stderr
+        self.build_log = log.read_text() if log.exists() else ""
         fn = ctypes.CDLL(str(so)).pf_rqs_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         self._fn = fn
         return fn
 
+    def plan(self, n: int, d: int, k: int, device: torch.device) -> TilePlan:
+        """tile_plan for the card `device` (its SM count read once)."""
+        idx = device.index if device.index is not None else 0
+        if idx not in self._sm_count:
+            self._sm_count[idx] = torch.cuda.get_device_properties(
+                idx).multi_processor_count
+        return tile_plan(n, d, k, self._sm_count[idx])
+
     def launch(self, x: torch.Tensor, raw: torch.Tensor, num_bins: int,
-               tail_bound: float, inverse: bool):
-        """x [N, D], raw [N, D·(3K-1)]: contiguous float32 on one CUDA
-        device -> (out [N, D], logdet [N]) on PyTorch's current stream."""
+               tail_bound: float, inverse: bool,
+               bias: Optional[torch.Tensor] = None):
+        """x [N, D] and raw [N, D·(3K-1)] 16-B aligned, bias [3K-1] or None:
+        contiguous float32 on one CUDA device -> (out [N, D], logdet [N])
+        of the spline on raw + bias, on PyTorch's current stream."""
         if x.device.type != "cuda" or raw.device != x.device:
             raise ValueError(f"rqs kernel needs x and raw on one CUDA device, "
                              f"got {x.device} and {raw.device}")
@@ -126,22 +240,36 @@ class RqsKernel:
         if x.dim() != 2:
             raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
         n, d = x.shape
-        if tuple(raw.shape) != (n, d * (3 * num_bins - 1)):
-            raise ValueError(f"raw must be [{n}, {d * (3 * num_bins - 1)}], "
+        n_raw = 3 * num_bins - 1
+        if tuple(raw.shape) != (n, d * n_raw):
+            raise ValueError(f"raw must be [{n}, {d * n_raw}], "
                              f"got {tuple(raw.shape)}")
         if not (x.is_contiguous() and raw.is_contiguous()):
             raise ValueError("rqs kernel needs contiguous x and raw")
-        if n >= 2 ** 31:
+        if raw.data_ptr() % 16 != 0 or x.data_ptr() % 16 != 0:
+            raise ValueError("rqs kernel needs x and raw at 16-byte aligned "
+                             "addresses (its tiles are bulk copies)")
+        if bias is not None:
+            if bias.device != x.device or bias.dtype != torch.float32:
+                raise ValueError(f"bias must be float32 on {x.device}, got "
+                                 f"{bias.dtype} on {bias.device}")
+            if tuple(bias.shape) != (n_raw,) or not bias.is_contiguous():
+                raise ValueError(f"bias must be a contiguous [{n_raw}], got "
+                                 f"{tuple(bias.shape)}")
+        if n >= 2 ** 31 - THREADS:
             raise ValueError(f"too many rows for the kernel: {n}")
         out = torch.empty_like(x)
         logdet = torch.empty(n, dtype=torch.float32, device=x.device)
         if n == 0:
             return out, logdet
         fn = self.load()
+        plan = self.plan(n, d, num_bins, x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), raw.data_ptr(), out.data_ptr(),
+        err = fn(x.data_ptr(), raw.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
                  logdet.data_ptr(), n, d, num_bins, float(tail_bound),
-                 int(bool(inverse)), x.device.index or 0, stream)
+                 int(bool(inverse)), plan.rows_per_tile, plan.grid,
+                 plan.smem_bytes, x.device.index or 0, stream)
         if err != 0:
             raise RuntimeError(f"rqs kernel launch failed with CUDA error "
                                f"{err}")
@@ -153,9 +281,11 @@ KERNEL = RqsKernel()
 
 
 def _rqs(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
-         tail_bound: float, inverse: bool):
+         tail_bound: float, inverse: bool, bias: Optional[torch.Tensor]):
     if x.device.type == "cpu":
         fn = plain.rqs_inverse if inverse else plain.rqs_forward
+        if bias is not None:
+            raw_params = raw_params + bias
         return fn(x, raw_params, num_bins, tail_bound)
     if x.device.type != "cuda":
         raise ValueError(f"no RQS implementation for device {x.device}")
@@ -165,18 +295,25 @@ def _rqs(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
         raise ValueError(f"raw_params must be {(*batch, d, n_raw)}, got "
                          f"{tuple(raw_params.shape)}")
     x2 = x.reshape(-1, d).contiguous()
+    if x2.data_ptr() % 16 != 0:          # a view into x: copy its N·D floats
+        x2 = x2.clone()
     raw2 = raw_params.reshape(x2.shape[0], d * n_raw).contiguous()
-    out, logdet = KERNEL.launch(x2, raw2, num_bins, tail_bound, inverse)
+    out, logdet = KERNEL.launch(x2, raw2, num_bins, tail_bound, inverse,
+                                bias)
     return out.reshape(*batch, d), logdet.reshape(batch)
 
 
 def rqs_forward(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
-                tail_bound: float = 5.0):
-    """Drop-in for ops.rqs.rqs_forward: the kernel on CUDA tensors."""
-    return _rqs(x, raw_params, num_bins, tail_bound, inverse=False)
+                tail_bound: float = 5.0,
+                bias: Optional[torch.Tensor] = None):
+    """ops.rqs.rqs_forward on raw_params + bias: the kernel on CUDA
+    tensors."""
+    return _rqs(x, raw_params, num_bins, tail_bound, False, bias)
 
 
 def rqs_inverse(y: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
-                tail_bound: float = 5.0):
-    """Drop-in for ops.rqs.rqs_inverse: the kernel on CUDA tensors."""
-    return _rqs(y, raw_params, num_bins, tail_bound, inverse=True)
+                tail_bound: float = 5.0,
+                bias: Optional[torch.Tensor] = None):
+    """ops.rqs.rqs_inverse on raw_params + bias: the kernel on CUDA
+    tensors."""
+    return _rqs(y, raw_params, num_bins, tail_bound, True, bias)
