@@ -26,8 +26,27 @@ Phases (any failure exits non-zero and prints no result line):
       events, the kernel per launch (µs, TB/s, share of its bound) beside
       the plain version; profile the batch, which must hold no add of the
       derivative bias over raw.
+  (f) the simulator, card against CPU: the flagship's prior (15-D) and an
+      aligned one (11-D), 8 events each, drawn on the CPU and run through
+      simulate_batch on both devices with the same draws: each slot's
+      whitened FD strain per detector (match and norm), the gate SNR, the
+      gated parameters and the strain; and cuFFT's C2R against pocketfft on
+      a spectrum whose DC and Nyquist bins carry imaginary parts.
+  (g) simulate_batch with the flagship's SimConfig timed by CUDA events at
+      B = 8 (bench.py) and B = 128 (the flagship's training batch), with
+      its peak memory and its kernel launches under the profiler.
+  (h) bench.py's path: simulate 8 events, encode once, draw 8 × 16384; the
+      launch counter is zeroed before and read after, and must show one
+      launch per flow layer; the sampling call is timed (draws/s).
+  (i) one request on a 15-D injection, infer(engine, inject=...): its
+      prepare (simulation), encode and sampling times and launches.
+  (j) TF32: with the global switches at torch's defaults, the float32
+      encoder of npe_r2_best on the card against the CPU (within 1e-4 of
+      the largest entry), beside what TF32 on would give.
+  (k) the spline kernel refuses inputs that require grad under grad.
   (e) the kernel table and the device as JSON lines; the last line is
       {"ok": true, "device": {...}}.
+Every time printed names the card and its power limit.
 The script imports torch, numpy and scipy (through the port) only.
 """
 
@@ -52,6 +71,13 @@ RAGGED_ROWS = (641, 5000)                         # a part tile at the end
 TOL_OUT, TOL_LOGDET = 0.0, 0.0
 N_REQUESTS, N_SAMPLES = 4, 5000
 BENCH_EVENTS, BENCH_DRAWS = 8, 16384              # bench.py:45-46
+TRAIN_BATCH = 128                                 # npe_r7_best batch_size
+TF32_RELEASE = "model_release/npe_r2_best"        # float32 encoder
+# simulator card vs CPU (tests/test_torch_sim_*.py hold the port to JAX
+# with the same numbers): match and norm per slot and detector, gate SNR,
+# strain to 1e-4 plus 2e-3 of the whitened signal's peak
+SIM_MATCH, SIM_NORM, SIM_SNR, SIM_ATOL, SIM_SIG = 1e-5, 1e-5, 1e-5, 1e-4, 2e-3
+TF32_TOL = 1e-4
 N_REF_DRAWS = 256
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
@@ -389,6 +415,270 @@ def phase_profile(torch, engine, bench, card):
               f"{e.key[:100]}")
 
 
+def _match(a, b) -> np.ndarray:
+    """|<a, b>| / (|a| |b|) over the last axis, complex128."""
+    a = a.astype(np.complex128)
+    b = b.astype(np.complex128)
+    num = np.abs(np.sum(a * np.conj(b), axis=-1))
+    den = np.sqrt(np.sum(np.abs(a) ** 2, -1) * np.sum(np.abs(b) ** 2, -1))
+    return num / np.maximum(den, 1e-300)
+
+
+def phase_sim_parity(torch, sim_cfg, card):
+    """(f) the port's simulator on the card against the port's CPU path, on
+    the same prior draws and event draws."""
+    from posteriflow_torch.physics import simulator as tsim
+    from posteriflow_torch.physics.psd import default_network_asd
+    from posteriflow_torch.physics.whiten import fd_white_to_td
+    from posteriflow_torch.prior import sample_batch
+    cfgs = {"15-D flagship": sim_cfg,
+            "11-D aligned": dataclasses.replace(
+                sim_cfg, prior=dataclasses.replace(sim_cfg.prior,
+                                                   precessing=False))}
+    asd = {d: default_network_asd(device=d) for d in (DEVICE, "cpu")}
+    for name, cfg in cfgs.items():
+        g = torch.Generator().manual_seed(11)
+        params, n_sig = sample_batch(BENCH_EVENTS, cfg.prior, g, "cpu")
+        draws = tsim.draw_events((BENCH_EVENTS,), g, "cpu")
+        flat = params.reshape(-1, params.shape[-1])
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            d_draws = tsim.SimDraws(*[t.to(dev) for t in draws])
+            with torch.no_grad():
+                h = tsim.signal_white_fd(flat.to(dev), asd[dev])
+                snr = tsim.signal_snr_amp_only(
+                    flat.to(dev), asd[dev],
+                    decimate=4 if flat.shape[-1] < 15 else 2)
+                ev = tsim.simulate_batch(BENCH_EVENTS, cfg, device=dev,
+                                         params=params.to(dev),
+                                         n_sig=n_sig.to(dev), draws=d_draws)
+            out[dev] = (h.cpu().numpy(), snr.cpu().numpy(), ev)
+        (hg, sg, eg), (hc, sc, ec) = out[DEVICE], out["cpu"]
+        live = np.linalg.norm(hc, axis=-1) > 0
+        m = _match(hg, hc)[live]
+        norm = np.abs(np.linalg.norm(hg, axis=-1)[live]
+                      / np.linalg.norm(hc, axis=-1)[live] - 1.0)
+        d_snr = float(np.abs(sg / sc - 1.0).max())
+        noise = draws.noise.numpy()
+        if cfg.glitch_prob > 0:
+            noise = noise + tsim._glitch_burst(draws, cfg.glitch_prob).numpy()
+        mask = ec.det_mask.numpy()[..., None] > 0
+        sig = np.where(mask, ec.strain.numpy() - noise, 0.0)
+        tol = SIM_ATOL + SIM_SIG * np.abs(sig).max(axis=(-2, -1))
+        err = np.abs(eg.strain.cpu().numpy() - ec.strain.numpy()).max(
+            axis=(-2, -1))
+        same_gate = (torch.equal(eg.n_sig.cpu(), ec.n_sig)
+                     and torch.equal(eg.params.cpu(), ec.params)
+                     and torch.equal(eg.det_mask.cpu(), ec.det_mask))
+        print(f"(f) simulator card vs CPU, {name}, B={BENCH_EVENTS} x "
+              f"S={cfg.max_signals} slots, n_sig {ec.n_sig.tolist()} "
+              f"[{card}]: whitened FD per slot and detector 1-match max "
+              f"{1.0 - m.min():.2e} (tol {SIM_MATCH:g}), |norm ratio-1| max "
+              f"{norm.max():.2e} (tol {SIM_NORM:g}); gate SNR rel max "
+              f"{d_snr:.2e} (tol {SIM_SNR:g}); gate and masks identical "
+              f"{same_gate}; strain max|Δ| {err.max():.3e} (tol per event "
+              f"{SIM_ATOL:g} + {SIM_SIG:g} x signal peak, at most "
+              f"{tol.max():.3e})")
+        check(1.0 - m.min() <= SIM_MATCH, f"{name}: whitened FD match")
+        check(norm.max() <= SIM_NORM, f"{name}: whitened FD norm")
+        check(d_snr <= SIM_SNR, f"{name}: gate SNR differs by {d_snr}")
+        check(same_gate, f"{name}: the gate differs between card and CPU")
+        check(bool((err <= tol).all()), f"{name}: strain differs by {err}")
+        check(bool(torch.isfinite(eg.strain).all()), "non-finite strain")
+
+    # cuFFT's C2R against pocketfft where DC and Nyquist have imaginary parts
+    rng = np.random.default_rng(3)
+    n = 16384
+    x = (rng.standard_normal((3, n // 2 + 1))
+         + 1j * rng.standard_normal((3, n // 2 + 1))).astype(np.complex64)
+    xt = torch.from_numpy(x)
+    raw_card = torch.fft.irfft(xt.to(DEVICE), n=n).cpu()
+    raw_cpu = torch.fft.irfft(xt, n=n)
+    ours = (fd_white_to_td(xt.to(DEVICE)).cpu() - fd_white_to_td(xt)).abs()
+    print(f"(f) irfft with imaginary DC/Nyquist parts, card vs CPU: cuFFT "
+          f"C2R as given max|Δ| {float((raw_card - raw_cpu).abs().max()):.3e}"
+          f"; fd_white_to_td (imaginary parts zeroed) max|Δ| "
+          f"{float(ours.max()):.3e}")
+    check(float(ours.max()) <= 1e-4, "fd_white_to_td differs card vs CPU")
+
+
+def phase_sim_time(torch, sim_cfg, card):
+    """(g) simulate_batch at B = 8 and B = 128, flagship SimConfig."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from posteriflow_torch.physics.simulator import simulate_batch
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    times = {}
+    for b, reps in ((BENCH_EVENTS, 10), (TRAIN_BATCH, 5)):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(lambda: simulate_batch(b, sim_cfg, device=DEVICE,
+                                                 generator=gen), reps=reps)
+        t0 = time.perf_counter()
+        ev = simulate_batch(b, sim_cfg, device=DEVICE, generator=gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(bool(torch.isfinite(ev.strain).all()), "non-finite strain")
+        check(tuple(ev.strain.shape) == (b, 3, 16384), "strain shape")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            simulate_batch(b, sim_cfg, device=DEVICE, generator=gen)
+            torch.cuda.synchronize()
+            window = (time.perf_counter() - t0) * 1e6
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern)
+        n_launch = sum(e.count for e in kern)
+        kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        top = "; ".join(f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+                        f"{e.key[:60]}" for e in kern[:5])
+        times[b] = ms
+        print(f"(g) simulate_batch B={b} (flagship SimConfig) [{card}]: "
+              f"{ms:.3f} ms by CUDA events ({reps} runs), {wall:.3f} ms "
+              f"wall for one, peak memory {peak:.2f} GiB, "
+              f"{n_launch} kernel launches, kernels {busy / 1e3:.3f} ms of "
+              f"a {window / 1e3:.3f} ms window under the profiler (device "
+              f"busy {busy / window:.1%}); top: {top}")
+    return times
+
+
+def phase_bench_path(torch, rqs_cuda, engine, sim_cfg, card):
+    """(h) bench.py's path on the card: simulate → encode → sample."""
+    from posteriflow_torch.physics.simulator import simulate_batch
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    rqs_cuda.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    batch = simulate_batch(BENCH_EVENTS, sim_cfg, device=DEVICE,
+                           generator=gen)
+    ctx = engine.encode(batch.strain, batch.asd_bands)
+    theta, log_q, railed = engine.sample_posterior(ctx, 0, BENCH_DRAWS,
+                                                   generator=gen)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = rqs_cuda.KERNEL.launches
+    check(launches == engine.cfg.flow_layers,
+          f"bench path launched the kernel {launches} times")
+    check(tuple(theta.shape) == (BENCH_EVENTS, BENCH_DRAWS,
+                                 engine.cfg.n_params), "samples shape")
+    check(bool(torch.isfinite(theta).all() and torch.isfinite(log_q).all()),
+          "non-finite samples on the simulated batch")
+    smp_ms = cuda_time_ms(lambda: engine.sample_posterior(
+        ctx, 0, BENCH_DRAWS, generator=gen), reps=5)
+    enc_ms = cuda_time_ms(lambda: engine.encode(batch.strain,
+                                                batch.asd_bands), reps=5)
+    rate = BENCH_EVENTS * BENCH_DRAWS / (smp_ms * 1e-3)
+    print(f"(h) bench path simulate -> encode -> sample, {BENCH_EVENTS} "
+          f"simulated events (n_sig {batch.n_sig.tolist()}) x {BENCH_DRAWS} "
+          f"draws [{card}]: {wall:.1f} ms wall for the first pass; encode "
+          f"{enc_ms:.3f} ms, sampling {smp_ms:.3f} ms by CUDA events, "
+          f"{rate:.0f} draws/s; kernel launches in the path {launches}; "
+          f"railing {float(railed.float().mean()):.4f}")
+    return {"launches": launches, "sampling_ms": smp_ms, "draws_per_s": rate,
+            "encode_ms": enc_ms}
+
+
+INJECTION = dict(mass_1=35.0, mass_2=28.0, luminosity_distance=500.0,
+                 ra=1.2, dec=-0.4, theta_jn=0.6, psi=0.9, phase=2.0,
+                 geocent_time=0.05, a1=0.5, a2=0.3, tilt_1=1.0, tilt_2=2.1,
+                 phi_12=0.7, phi_jl=3.0)
+
+
+def phase_inject(torch, rqs_cuda, engine, card):
+    """(i) two requests on a 15-D injection; the second is timed warm."""
+    from posteriflow_torch.inference.pipeline import infer
+    for i in range(2):
+        rqs_cuda.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        res = infer(engine, inject=[INJECTION], n_samples=N_SAMPLES, seed=i)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = rqs_cuda.KERNEL.launches
+        rt = res.diagnostics["runtime"]
+        print(f"(i) injection request {i} [{card}]: {wall:.1f} ms wall "
+              f"(prepare {rt['prepare'] * 1e3:.1f}, encode "
+              f"{rt['encode'] * 1e3:.1f}, sampling {rt['sampling'] * 1e3:.1f})"
+              f"; verdict {res.verdict}, median m1 "
+              f"{float(np.median(res.samples[:, 0])):.1f} (injected "
+              f"{INJECTION['mass_1']}), kernel launches {launches}")
+        check(launches == engine.cfg.flow_layers,
+              f"injection request launched the kernel {launches} times")
+        check(res.samples.shape == (N_SAMPLES, engine.cfg.n_params),
+              "injection samples shape")
+        check(bool(np.isfinite(res.samples).all()
+                   and np.isfinite(res.log_prob).all()),
+              "non-finite injection samples")
+    return launches
+
+
+def phase_tf32(torch, engine_cls, card):
+    """(j) the float32 encoder of npe_r2_best under torch's default TF32
+    switches, card against CPU; then with the port's guard lifted and TF32
+    on, to show what it guards against."""
+    import contextlib
+
+    from posteriflow_torch.inference.preprocessing import prepare_simulated
+    from posteriflow_torch.models import encoder as enc_mod
+    from posteriflow_torch.models import flow as flow_mod
+    from posteriflow_torch.train.checkpoints import load_release
+    state_dict, cfg, _ = load_release(TF32_RELEASE)
+    check(cfg.encoder_dtype == "float32", "TF32 release is not float32")
+    inj = {k: v for k, v in INJECTION.items()
+           if k in cfg.param_names}
+    prep = prepare_simulated([inj], seed=3, psd_bands=cfg.psd_bands,
+                             param_names=cfg.param_names, device="cpu")
+    engines = {d: engine_cls(state_dict, cfg, device=d)
+               for d in (DEVICE, "cpu")}
+    cpu = engines["cpu"].encode(prep.strain[None],
+                                prep.asd_bands[None]).numpy()
+    scale = float(np.abs(cpu).max())
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        # torch's defaults, not this script's
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        card_ctx = engines[DEVICE].encode(prep.strain[None],
+                                          prep.asd_bands[None])
+        d_guard = float(np.abs(card_ctx.cpu().numpy() - cpu).max()) / scale
+        torch.backends.cuda.matmul.allow_tf32 = True
+        unguarded = (enc_mod.fp32_exact, flow_mod.fp32_exact)
+        enc_mod.fp32_exact = flow_mod.fp32_exact = contextlib.nullcontext
+        try:
+            tf32_ctx = engines[DEVICE].encode(prep.strain[None],
+                                              prep.asd_bands[None])
+        finally:
+            enc_mod.fp32_exact, flow_mod.fp32_exact = unguarded
+        d_tf32 = float(np.abs(tf32_ctx.cpu().numpy() - cpu).max()) / scale
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    print(f"(j) TF32: {TF32_RELEASE} (float32 encoder) context card vs CPU "
+          f"under torch's default switches (cudnn.allow_tf32=True, "
+          f"matmul.allow_tf32=False): max|Δ| {d_guard:.3e} of the largest "
+          f"entry (tol {TF32_TOL:g}); with the port's guard lifted and TF32 "
+          f"on for convs and matmuls it would be {d_tf32:.3e} [{card}]")
+    check(d_guard <= TF32_TOL, f"float32 encoder differs by {d_guard}")
+
+
+def phase_grad_guard(torch, rqs_cuda):
+    """(k) the kernel has no backward: inputs that require grad, under
+    grad, raise; under no_grad the same call runs."""
+    x, raw, bias = spline_inputs(torch, 257, seed=4)
+    raw.requires_grad_(True)
+    try:
+        rqs_cuda.rqs_inverse(x, raw, K_BINS, TAIL, bias=bias)
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        raise SmokeFailure("the kernel accepted inputs that require grad")
+    with torch.no_grad():
+        out, _ = rqs_cuda.rqs_inverse(x, raw, K_BINS, TAIL, bias=bias)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "non-finite output under no_grad")
+    print(f"(k) grad guard: rqs_inverse on CUDA inputs that require grad "
+          f"raised RuntimeError ({msg[:60]}...); under no_grad it ran")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -427,13 +717,22 @@ def main() -> int:
         x, raw, bias, errs = phase_kernel_check(torch, plain, rqs_cuda,
                                                 card)
 
-        state_dict, cfg, _meta = load_release(RELEASE)
+        state_dict, cfg, meta = load_release(RELEASE)
         engine = load_model(RELEASE, device=DEVICE)
         launches = phase_serve(torch, rqs_cuda, engine, card)
         phase_reference(torch, InferenceEngine, state_dict, cfg, card)
         bench = phase_bench(torch, plain, rqs_cuda, engine, x, raw, bias,
                             card)
         phase_profile(torch, engine, bench, card)
+
+        from posteriflow_torch.physics.simulator import sim_config_from_dict
+        sim_cfg = sim_config_from_dict(meta["config"]["sim"])
+        phase_sim_parity(torch, sim_cfg, card)
+        sim_ms = phase_sim_time(torch, sim_cfg, card)
+        path = phase_bench_path(torch, rqs_cuda, engine, sim_cfg, card)
+        inj_launches = phase_inject(torch, rqs_cuda, engine, card)
+        phase_tf32(torch, InferenceEngine, card)
+        phase_grad_guard(torch, rqs_cuda)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -445,7 +744,10 @@ def main() -> int:
         "route": "cuda",
         "source": "posteriflow_torch/csrc/rqs.cu",
         "replaces": "posteriflow_tpu/ops/pallas_rqs.py:118",
-        "launches": launches,
+        "launches": path["launches"],
+        "launches_by_path": {"simulate-encode-sample (h)": path["launches"],
+                             f"serve {N_REQUESTS} requests (c)": launches,
+                             "injection request (i)": inj_launches},
         "max_abs_err": max(errs["inverse"][0], errs["forward"][0]),
         "max_abs_err_logdet": max(errs["inverse"][1], errs["forward"][1]),
         "ms": k_ms, "plain_ms": p_ms,
@@ -456,7 +758,10 @@ def main() -> int:
         "library_ms": None,
     }]
     print(f"(e) done in {time.perf_counter() - t_start:.1f} s [{card}]; "
-          f"draws/s {bench['draws_per_s']:.0f}")
+          f"draws/s {bench['draws_per_s']:.0f} (noise batch, d), "
+          f"{path['draws_per_s']:.0f} (simulated batch, h); simulate_batch "
+          f"{sim_ms[BENCH_EVENTS]:.3f} ms at B={BENCH_EVENTS}, "
+          f"{sim_ms[TRAIN_BATCH]:.3f} ms at B={TRAIN_BATCH}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

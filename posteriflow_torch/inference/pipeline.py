@@ -2,6 +2,7 @@
 for rank-conditioned multi-signal events.
 
 Port of posteriflow_tpu/inference/pipeline.py:37-203. The path: data prep
+(raw strain through prepare_real, or an injection through the simulator)
 -> encode once -> base draws -> coupling-flow inverse (the RQS kernel in
 every layer) -> wrap -> denormalize -> physical-units log q -> m1 >= m2 ->
 OOD score + confidence verdict -> refinement gate.
@@ -22,7 +23,8 @@ from posteriflow_torch.inference.gating import load_bias_map, refinement_gate
 from posteriflow_torch.inference.ood import (ContextStats, confidence_verdict,
                                              score_context)
 from posteriflow_torch.inference.preprocessing import (PreparedData,
-                                                       prepare_real)
+                                                       prepare_real,
+                                                       prepare_simulated)
 from posteriflow_torch.inference.result import PosteriorResult
 from posteriflow_torch.models.npe import LeanNPE, NPEConfig
 from posteriflow_torch.train.checkpoints import load_release
@@ -106,26 +108,35 @@ def load_model(release_dir, device="cuda") -> InferenceEngine:
     return _ENGINE_CACHE[key]
 
 
-def _prepare(engine: InferenceEngine, data=None, strain=None,
-             gps=None) -> PreparedData:
+def _prepare(engine: InferenceEngine, data=None, strain=None, gps=None,
+             inject=None, seed: int = 0, draws=None) -> PreparedData:
     if isinstance(data, PreparedData):
         return data
+    if inject is not None:
+        return prepare_simulated(inject, seed=seed,
+                                 psd_bands=engine.cfg.psd_bands,
+                                 param_names=engine.cfg.param_names,
+                                 device=engine.device, draws=draws)
     if strain is not None:
         return prepare_real(strain, gps_time=gps or 0.0,
                             psd_bands=engine.cfg.psd_bands)
-    raise ValueError("provide PreparedData or raw strain")
+    raise ValueError("provide PreparedData, raw strain, or an injection")
 
 
 def infer(engine: InferenceEngine, data=None, strain=None, gps=None,
-          rank: int = 0, n_samples: int = 5000, seed: int = 0,
-          generator: Optional[torch.Generator] = None) -> PosteriorResult:
+          inject=None, rank: int = 0, n_samples: int = 5000, seed: int = 0,
+          generator: Optional[torch.Generator] = None,
+          z: Optional[torch.Tensor] = None, draws=None) -> PosteriorResult:
     """One-call amortized inference -> PosteriorResult.
 
-    strain: {detector: raw long strain} for prepare_real, or `data` as
-    PreparedData. The base draws come from `generator`, else from a
-    generator on the engine's device seeded with seed + 7."""
+    strain: {detector: raw long strain} for prepare_real; inject: the
+    parameters of an injection for prepare_simulated (dicts or an array),
+    simulated on the engine's device with noise from `seed` (or from
+    `draws`, a SimDraws of one event); or `data` as PreparedData. The base
+    draws are `z` [1, n_samples, P] if given, else come from `generator`,
+    else from a generator on the engine's device seeded with seed + 7."""
     timings = {}
-    prepared = _prepare(engine, data, strain, gps)
+    prepared = _prepare(engine, data, strain, gps, inject, seed, draws)
     timings.update(prepared.timings)
     dev = engine.device
 
@@ -135,10 +146,11 @@ def infer(engine: InferenceEngine, data=None, strain=None, gps=None,
     timings["encode"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    if generator is None:
+    if generator is None and z is None:
         generator = torch.Generator(device=dev).manual_seed(seed + 7)
-    theta, log_q, railed = engine.sample_posterior(ctx, rank, n_samples,
-                                                   generator=generator)
+    theta, log_q, railed = engine.sample_posterior(
+        ctx, rank, n_samples, generator=generator,
+        z=None if z is None else z.to(dev))
     samples = theta[0].cpu().numpy()
     timings["sampling"] = time.perf_counter() - t0
 
@@ -174,6 +186,6 @@ def infer_overlapping(engine: InferenceEngine, data=None, n_signals: int = 2,
                       n_samples: int = 5000, seed: int = 0,
                       **prep_kwargs) -> List[PosteriorResult]:
     """One posterior per rank, reusing the PreparedData."""
-    prepared = _prepare(engine, data, **prep_kwargs)
+    prepared = _prepare(engine, data, seed=seed, **prep_kwargs)
     return [infer(engine, data=prepared, rank=r, n_samples=n_samples,
                   seed=seed) for r in range(n_signals)]

@@ -14,7 +14,8 @@ preprocessing.py):
     off-source kurtosis, repeated samples;
   - asd_bands with the training definition: band-mean
     log(ASD_design / ASD_measured) over K log bands.
-Simulated injections (prepare_simulated) arrive with the simulator port.
+Simulated injections (`prepare_simulated`, :209-257 of the JAX module) go
+through the port's simulator on the device.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ class PreparedData:
     warnings: List[str]
     timings: Dict[str, float]
     gps_time: float = GPS_REF
+    truth: Optional[np.ndarray] = None  # [n_sig, P] for injections
 
 
 def quality_checks(white: np.ndarray, det: str) -> tuple[dict, list]:
@@ -186,3 +188,64 @@ def prepare_real(strain_by_det: Dict[str, np.ndarray],
                         detectors_present=present, quality=quality,
                         warnings=warnings, timings=timings,
                         gps_time=gps_time)
+
+
+_PRECESSION_KEYS = ("tilt_1", "tilt_2", "phi_12", "phi_jl")
+
+
+def prepare_simulated(params_list, seed: int = 0, psd_bands: int = 16,
+                      add_noise: bool = True, param_names=None,
+                      device="cuda",
+                      generator: Optional["torch.Generator"] = None,
+                      draws=None) -> PreparedData:
+    """A fresh injection through the training simulator on `device`.
+
+    params_list: [n_sig] dicts keyed by param_names (default PARAM_NAMES;
+    PARAM_NAMES_PRECESSING for 15-D injections, where an omitted
+    precession key means 0.0, the aligned limit; a missing base key raises
+    KeyError) or an [n_sig, P] array. The gate keeps every signal
+    (min_snr 0) and ranks them by loudness, so `truth` is in rank order.
+    The noise comes from `draws` (physics.simulator.SimDraws of one
+    event) if given, else from `generator`, else from a generator on
+    `device` seeded with `seed`."""
+    import torch
+
+    from posteriflow_torch import PARAM_NAMES
+    from posteriflow_torch.physics.simulator import (SimConfig, design_asd,
+                                                     draw_events,
+                                                     simulate_event)
+    from posteriflow_torch.prior import PriorConfig
+
+    t0 = time.time()
+    if param_names is None:
+        param_names = PARAM_NAMES
+    if isinstance(params_list, np.ndarray):
+        arr = np.asarray(params_list, dtype=np.float32)
+    else:
+        arr = np.array(
+            [[float(p.get(k, 0.0)) if k in _PRECESSION_KEYS else float(p[k])
+              for k in param_names] for p in params_list],
+            dtype=np.float32)
+    n_sig = arr.shape[0]
+    cfg = SimConfig(prior=PriorConfig(max_signals=max(n_sig, 1),
+                                      precessing=arr.shape[1] >= 15),
+                    min_snr=0.0, psd_bands=psd_bands, add_noise=add_noise)
+    device = torch.device(device)
+    if draws is None:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(seed)
+        draws = draw_events((), generator, device)
+    ev = simulate_event(torch.as_tensor(arr, device=device), n_sig,
+                        design_asd(device), cfg, draws)
+    strain = ev.strain.cpu().numpy()
+    quality, warnings = {}, []
+    for i, det in enumerate(DETECTORS):
+        q, warn = quality_checks(strain[i], det)
+        quality[det] = q
+        warnings += warn
+    return PreparedData(strain=strain, asds=_DESIGN_ASD.copy(),
+                        asd_bands=np.zeros((3, psd_bands), np.float32),
+                        detectors_present=list(DETECTORS), quality=quality,
+                        warnings=warnings,
+                        timings={"prepare": time.time() - t0},
+                        truth=ev.params[:n_sig].cpu().numpy())

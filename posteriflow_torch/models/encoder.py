@@ -11,6 +11,8 @@ follow the flax modules so that released weights load one to one:
     the softmax is taken in the compute dtype;
   - matmuls and convs run in `compute_dtype` (flax `dtype=`), the residual
     stream, LayerNorms and all geometry/energy features stay float32;
+    float32 products run with TF32 off (utils/precision.fp32_exact), as
+    JAX computes them;
   - GELU is the tanh approximation (flax nn.gelu).
 
 Module names are the flax names (stem.Conv_0, fusion_0.LayerNorm_0,
@@ -29,6 +31,7 @@ from torch import nn
 from posteriflow_torch.models.flow import DTYPES, dense, gelu, in_dtype
 from posteriflow_torch.physics.constants import (F_LOWER, F_UPPER, N_SAMPLES,
                                                  SAMPLE_RATE)
+from posteriflow_torch.utils.precision import fp32_exact
 
 STEM_SCHEDULE = ((32, 64, 8), (64, 16, 4), (128, 8, 4))   # (out, k, stride)
 STEM_LAST = (4, 2)                                         # d_model out
@@ -62,11 +65,12 @@ class ConvStem(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         h = x[:, None, :]
-        for i in range(self.n_convs):
-            conv = getattr(self, f"Conv_{i}")
-            h = torch.nn.functional.conv1d(h.to(dt), conv.weight.to(dt),
-                                           stride=conv.stride)
-            h = gelu(h + conv.bias.to(dt)[:, None])
+        with fp32_exact():                 # no TF32 for a float32 stem
+            for i in range(self.n_convs):
+                conv = getattr(self, f"Conv_{i}")
+                h = torch.nn.functional.conv1d(h.to(dt), conv.weight.to(dt),
+                                               stride=conv.stride)
+                h = gelu(h + conv.bias.to(dt)[:, None])
         return h.transpose(1, 2)
 
 
@@ -185,6 +189,11 @@ class LeanStrainEncoder(nn.Module):
 
     def forward(self, strain: torch.Tensor,
                 asd_bands: Optional[torch.Tensor] = None) -> torch.Tensor:
+        with fp32_exact():
+            return self._forward(strain, asd_bands)
+
+    def _forward(self, strain: torch.Tensor,
+                 asd_bands: Optional[torch.Tensor]) -> torch.Tensor:
         b, d, t = strain.shape
         strain = torch.clamp(torch.nan_to_num(strain, nan=0.0, posinf=100.0,
                                               neginf=-100.0), -100.0, 100.0)

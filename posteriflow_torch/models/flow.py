@@ -23,6 +23,7 @@ from torch import nn
 
 from posteriflow_torch.ops import rqs_cuda
 from posteriflow_torch.ops.rqs import DEFAULT_MIN_DERIVATIVE
+from posteriflow_torch.utils.precision import fp32_exact
 
 # derivative-channel init bias: min_derivative + softplus(b) = 1 exactly
 _DERIV_BIAS = float(np.log(np.expm1(1.0 - DEFAULT_MIN_DERIVATIVE)))
@@ -159,17 +160,19 @@ class CouplingNSF(nn.Module):
     def forward(self, y: torch.Tensor, context: torch.Tensor):
         """y [..., D], context [..., C] -> (z, logdet [...])."""
         ld_total = torch.zeros(y.shape[:-1], dtype=y.dtype, device=y.device)
-        for i in range(self.num_layers):
-            y, ld = self._layer_forward(i, y, context)
-            ld_total = ld_total + ld
+        with fp32_exact():               # the float32 output projections
+            for i in range(self.num_layers):
+                y, ld = self._layer_forward(i, y, context)
+                ld_total = ld_total + ld
         return y, ld_total
 
     def inverse(self, z: torch.Tensor, context: torch.Tensor):
         """z [..., D], context [..., C] -> (y, logdet [...])."""
         ld_total = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
-        for i in reversed(range(self.num_layers)):
-            z, ld = self._layer_inverse(i, z, context)
-            ld_total = ld_total + ld
+        with fp32_exact():
+            for i in reversed(range(self.num_layers)):
+                z, ld = self._layer_inverse(i, z, context)
+                ld_total = ld_total + ld
         return z, ld_total
 
     def _log_base(self, z: torch.Tensor) -> torch.Tensor:

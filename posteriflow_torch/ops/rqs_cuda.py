@@ -4,7 +4,10 @@
 optional `bias` [3K-1] added to the raw parameters, and choose by the
 tensor's device: a CPU tensor goes through the plain PyTorch version on
 raw + bias, a CUDA tensor through the kernel, which adds the bias as it
-reads raw (or an exception; there is no fallback). The kernel replaces the
+reads raw (or an exception; there is no fallback). The kernel has no
+backward yet: on CUDA inputs that require grad, with grad enabled, the
+wrapper raises rather than return outputs that autograd cannot see through.
+The kernel replaces the
 TPU kernel posteriflow_tpu/ops/pallas_rqs.py:_pallas_rqs; csrc/rqs.cu says
 what bounds it and how it is laid out, and `tile_plan` below sizes its ring
 of row tiles.
@@ -289,6 +292,13 @@ def _rqs(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
         return fn(x, raw_params, num_bins, tail_bound)
     if x.device.type != "cuda":
         raise ValueError(f"no RQS implementation for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, raw_params, bias)):
+        # the kernel writes its outputs through raw pointers, so autograd
+        # would see no graph and a loss would lose these gradients silently
+        raise RuntimeError("the CUDA RQS kernel has no backward yet: call it "
+                           "under torch.no_grad(), or on inputs that do not "
+                           "require grad")
     batch, d = x.shape[:-1], x.shape[-1]
     n_raw = 3 * num_bins - 1
     if tuple(raw_params.shape) != (*batch, d, n_raw):

@@ -14,6 +14,8 @@ MTSUN_SI = 4.925490947641267e-6     # G*Msun/c^3 [s]
 MRSUN_SI = 1.476625038050125e3      # G*Msun/c^2 [m]
 MPC_SI = 3.085677581491367e22       # megaparsec [m]
 
+EULER_GAMMA = 0.5772156649015329
+
 # Device-side strain-domain quantities carry this fixed scale so that their
 # squares stay inside the float32 range; whitened data is a ratio and does
 # not see it.

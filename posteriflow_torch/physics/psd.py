@@ -1,8 +1,9 @@
-"""Analytic design PSDs and the measured-ASD file loader (numpy float64).
+"""Analytic design PSDs, the measured-ASD file loader, and the device ASD.
 
-The host-side part of posteriflow_tpu/physics/psd.py (:36-64, :74-111)
-that `inference.prepare_real` needs. PSD values (~1e-47 1/Hz) underflow
-float32, so they stay float64 on the host.
+Port of posteriflow_tpu/physics/psd.py (:36-111). PSD values (~1e-47 1/Hz)
+underflow float32, so they stay float64 on the host; the device sees only
+the ASD, in scaled strain units (× STRAIN_SCALE), as `default_network_asd`
+gives it.
 
 aLIGO uses the broadband analytic fit
   S_n(f) = 1e-48 (0.0152 x⁻⁴ + 0.2935 x^{9/4} + 2.7951 x^{3/2}
@@ -13,8 +14,10 @@ AdVirgo is the same family rescaled to the AdV design floor.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from posteriflow_torch.physics.constants import DETECTORS, FREQS
+from posteriflow_torch.physics.constants import (DETECTORS, FREQS,
+                                                 STRAIN_SCALE)
 
 PSD_FLOOR = 1e-50
 PSD_CAP = 1e-38     # value assigned below the low-frequency cutoff
@@ -47,6 +50,14 @@ def psd_for(detector: str, f: np.ndarray = FREQS) -> np.ndarray:
 def default_network_psd(freqs: np.ndarray = FREQS) -> np.ndarray:
     """[n_det, N_RFFT] float64 numpy design PSD stack (H1, L1, V1)."""
     return np.stack([psd_for(d, freqs) for d in DETECTORS])
+
+
+def default_network_asd(freqs: np.ndarray = FREQS,
+                        device="cuda") -> torch.Tensor:
+    """[n_det, N_RFFT] float32 design ASDs in scaled strain units
+    (× STRAIN_SCALE) on `device`: the simulator's and whitening's ASD."""
+    return torch.tensor(np.sqrt(default_network_psd(freqs)) * STRAIN_SCALE,
+                        dtype=torch.float32, device=device)
 
 
 def load_asd_file(path, freqs: np.ndarray = FREQS) -> np.ndarray:

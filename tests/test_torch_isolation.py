@@ -2,8 +2,9 @@
 the JAX stack, msgpack, pyyaml or ninja.
 
 A subprocess blocks those imports with a sys.meta_path finder, imports
-every module of posteriflow_torch, loads the flagship release on the CPU
-and serves one request. chip_smoke.py without a GPU exits non-zero, fast,
+every module of posteriflow_torch, loads the flagship release on the CPU,
+serves one request on raw strain, simulates a batch with the flagship's
+SimConfig and serves one request on an injection. chip_smoke.py without a GPU exits non-zero, fast,
 with no result line. A scan of the sources checks what they import.
 """
 
@@ -51,11 +52,28 @@ import chip_smoke
 from posteriflow_torch.inference.pipeline import infer, load_model
 eng = load_model("model_release/npe_r7_best", device="cpu")
 res = infer(eng, strain=chip_smoke.coloured_noise(seed=1), n_samples=64)
+
+import torch
+from posteriflow_torch import PARAM_NAMES_PRECESSING
+from posteriflow_torch.physics.simulator import (sim_config_from_dict,
+                                                 simulate_batch)
+meta = json.load(open("model_release/npe_r7_best/meta.json"))
+sim = sim_config_from_dict(meta["config"]["sim"])
+batch = simulate_batch(2, sim, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+inj = infer(eng, inject=[dict(zip(PARAM_NAMES_PRECESSING,
+                                  [30.0, 25.0, 400.0, 1.0, 0.2, 0.5, 0.3,
+                                   1.0, 0.0, 0.4, 0.3, 1.0, 2.0, 0.5,
+                                   1.0]))], n_samples=32, seed=2)
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                   "finite": bool(np.isfinite(res.samples).all()
                                  and np.isfinite(res.log_prob).all()),
                   "verdict": res.verdict, "gate": "refine" in res.gate,
+                  "sim": [list(batch.strain.shape),
+                          bool(torch.isfinite(batch.strain).all())],
+                  "inject": [list(inj.samples.shape),
+                             bool(np.isfinite(inj.samples).all())],
                   "loaded": loaded}))
 """
 
@@ -78,10 +96,17 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
         "models.npe", "utils.msgpack_lite", "train.checkpoints",
         "inference.preprocessing", "inference.ood", "inference.gating",
         "inference.result", "inference.pipeline", "scaler",
-        "physics.constants", "physics.psd")}
+        "physics.constants", "physics.psd", "physics.detectors",
+        "physics.projection", "physics.whiten", "physics.simulator",
+        "physics.waveforms.taylorf2", "physics.waveforms.imr",
+        "physics.waveforms.phenomd", "physics.waveforms.tidal",
+        "physics.waveforms.precession", "prior", "utils.precision",
+        "tools.bench")}
     assert expected <= set(out["modules"])
     assert out["shape"] == [64, 15] and out["finite"]
     assert out["verdict"] in ("HIGH", "MEDIUM", "LOW") and out["gate"]
+    assert out["sim"] == [[2, 3, 16384], True]
+    assert out["inject"] == [[32, 15], True]
     assert out["loaded"] == []
 
 
