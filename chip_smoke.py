@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""On-card check of posteriflow_torch: serve the 15-D flagship release on one
-NVIDIA GPU through the hand-written CUDA RQS kernel (csrc/rqs.cu: a TMA
-bulk-copy ring of row tiles, one thread per spline, the conditioner's
-derivative bias added in the kernel).
+"""On-card check of posteriflow_torch: serve and train the 15-D flagship
+release on one NVIDIA GPU through the hand-written CUDA RQS kernels
+(csrc/rqs.cu: rqs_tile, a TMA bulk-copy ring of row tiles, one thread per
+spline, the conditioner's derivative bias added in the kernel; rqs_grad,
+its backward, one thread per spline over a tile of raw in shared memory).
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -43,7 +44,30 @@ Phases (any failure exits non-zero and prints no result line):
   (j) TF32: with the global switches at torch's defaults, the float32
       encoder of npe_r2_best on the card against the CPU (within 1e-4 of
       the largest entry), beside what TF32 on would give.
-  (k) the spline kernel refuses inputs that require grad under grad.
+  (k) under grad on CUDA inputs, the inverse and a bias that requires grad
+      raise; the forward runs the forward kernel, and its backward the
+      backward kernel, with the plain VJP's gradients.
+  (l) the backward kernel rqs_grad against ops/rqs.py rqs_forward_vjp at
+      K in {4, 8, 16, 32} and N in {640, 257, 131072} (x on knots, at ±B,
+      in the tails; g_logdet zero and not), within 1e-5 of the largest
+      entry plus 1e-6; its registers and spills; its time at 640 (the
+      training shape) and 131072 rows beside the plain VJP and its bounds.
+  (m) training at full width, TrainConfig from the release's meta.json
+      (batch 128, bf16 matmuls, no noise bank), weights from the release:
+      one fixed CPU-simulated batch of 16 events in float32, loss,
+      component norms and every gradient leaf with the kernels against the
+      plain spline on the card (1e-4) and against the CPU (the loss 1e-4,
+      leaves 1e-2 of their largest entry);
+      then 20 steps simulate -> batch_nll -> backward -> clip -> AdamW,
+      split by CUDA events, steps/s, events/s, peak memory, MFU, NLL per
+      step (finite, step 0 in [-8, -3]; parameters still at step 0 since
+      lr(0) = 0, moved at step 1); every step launches 10 forward and 10
+      backward spline kernels and no plain spline.
+  (n) fit 2 epochs x 5 steps (64 validation events) into a temporary
+      directory: history.json with the keys of the release's own JAX
+      record, finite gate metrics, ckpt/last and ckpt/best; resume_from
+      continues the epochs and the step count; from_checkpoint(best)
+      samples on the card.
   (e) the kernel table and the device as JSON lines; the last line is
       {"ok": true, "device": {...}}.
 Every time printed names the card and its power limit.
@@ -55,6 +79,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -79,6 +104,36 @@ TF32_RELEASE = "model_release/npe_r2_best"        # float32 encoder
 SIM_MATCH, SIM_NORM, SIM_SNR, SIM_ATOL, SIM_SIG = 1e-5, 1e-5, 1e-5, 1e-4, 2e-3
 TF32_TOL = 1e-4
 N_REF_DRAWS = 256
+# the spline's backward kernel against the plain VJP (not bit-equal: the
+# softmax's amax and the order of the sums differ): max|Δ| <= GRAD_REL of
+# the reference's largest entry + GRAD_ABS, at these row counts
+GRAD_REL, GRAD_ABS = 1e-5, 1e-6
+TRAIN_ROWS = TRAIN_BATCH * 5                      # B·S rows a flow layer
+GRAD_ROWS = (TRAIN_ROWS, 257, N_ROWS)
+# the train step in float32, each gradient leaf relative to its largest
+# entry after TRAIN_GRAD_ABS of the largest entry of any leaf (leaves whose
+# gradient is zero but for rounding, such as attention key biases), worst
+# over TRAIN_PARITY_SEEDS. The kernels against the plain spline on the
+# card: TRAIN_KERNEL_TOL, loss and leaves. The card against the CPU: the
+# loss to TRAIN_LOSS_TOL, norms and leaves to TRAIN_TOL. At a trained
+# release the batch gradient is a sum of per-event terms that mostly
+# cancel, so the GEMMs' and convs' rounding (in another order in
+# cuBLAS/cuDNN than on the CPU) shows in it amplified: on an NVIDIA H100
+# 80GB HBM3 at 700 W the worst leaf over the six seeds differs from the CPU
+# by 3.9e-3 with the kernels, the same with the plain spline on the card.
+# TF32 in the backward moves the leaves by no more than that (1.5e-3 to
+# 3.8e-3 against the CPU with trainer.backward's guard lifted and TF32
+# allowed), so the guard is held card against card, where the sound runs
+# agree to 0 after the allowance and the guard lifted reads 5.4e-5 to
+# 6.7e-4 under torch's defaults (cuDNN TF32) and 1.2e-3 to 2.3e-3 with TF32
+# allowed for matmuls: TF32_GUARD_TOL.
+TRAIN_PARITY_EVENTS, TRAIN_GRAD_ABS = 16, 1e-5
+TRAIN_PARITY_SEEDS = tuple(range(21, 27))
+TRAIN_KERNEL_TOL, TRAIN_LOSS_TOL, TRAIN_TOL = 1e-4, 1e-4, 1e-2
+TF32_GUARD_TOL = 1e-5
+TRAIN_STEPS = 20
+TRAIN_NLL0 = (-8.0, -3.0)        # the release's Gaussian val_nll is -5.55
+FIT_STEPS, FIT_VAL_EVENTS = 5, 64
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -660,9 +715,11 @@ def phase_tf32(torch, engine_cls, card):
     check(d_guard <= TF32_TOL, f"float32 encoder differs by {d_guard}")
 
 
-def phase_grad_guard(torch, rqs_cuda):
-    """(k) the kernel has no backward: inputs that require grad, under
-    grad, raise; under no_grad the same call runs."""
+def phase_grad_guard(torch, plain, rqs_cuda):
+    """(k) under grad on CUDA inputs: the inverse, and a bias that requires
+    grad, raise (no backward); the forward with x and raw requiring grad
+    runs the forward kernel and, in backward, the backward kernel; under
+    no_grad the inverse runs."""
     x, raw, bias = spline_inputs(torch, 257, seed=4)
     raw.requires_grad_(True)
     try:
@@ -670,13 +727,577 @@ def phase_grad_guard(torch, rqs_cuda):
     except RuntimeError as e:
         msg = str(e)
     else:
-        raise SmokeFailure("the kernel accepted inputs that require grad")
+        raise SmokeFailure("the inverse kernel accepted inputs that require "
+                           "grad")
     with torch.no_grad():
         out, _ = rqs_cuda.rqs_inverse(x, raw, K_BINS, TAIL, bias=bias)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "non-finite output under no_grad")
-    print(f"(k) grad guard: rqs_inverse on CUDA inputs that require grad "
-          f"raised RuntimeError ({msg[:60]}...); under no_grad it ran")
+    try:
+        rqs_cuda.rqs_forward(x, raw, K_BINS, TAIL,
+                             bias=bias.clone().requires_grad_(True))
+    except RuntimeError:
+        pass
+    else:
+        raise SmokeFailure("the forward kernel accepted a bias that "
+                           "requires grad")
+    xg = x.clone().requires_grad_(True)
+    f0, b0 = rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches
+    out, ld = rqs_cuda.rqs_forward(xg, raw, K_BINS, TAIL, bias=bias)
+    (out.square().sum() + ld.sum()).backward()
+    torch.cuda.synchronize()
+    ref_x, ref_raw = plain.rqs_forward_vjp(x, raw.detach(), 2.0 * out.detach(),
+                                           torch.ones_like(ld), K_BINS, TAIL,
+                                           bias=bias)
+    err = max(grad_err(xg.grad, ref_x), grad_err(raw.grad, ref_raw))
+    launched = (rqs_cuda.KERNEL.launches - f0,
+                rqs_cuda.GRAD_KERNEL.launches - b0)
+    print(f"(k) rqs_inverse on CUDA inputs that require grad raised "
+          f"RuntimeError ({msg[:60]}...), so did rqs_forward with a bias "
+          f"that requires grad; rqs_forward under grad launched the forward "
+          f"and backward kernels {launched}, gradients within {err:.2e} of "
+          f"the largest entry of the plain VJP's (tol {GRAD_REL:g} + "
+          f"{GRAD_ABS:g} absolute)")
+    check(launched == (1, 1), f"forward under grad launched {launched}")
+    check(err <= GRAD_REL, f"autograd through the kernels differs by {err}")
+
+
+def grad_err(got, ref) -> float:
+    """max |Δ| relative to the reference's largest |entry|, less the
+    absolute allowance GRAD_ABS: <= GRAD_REL passes."""
+    d = float((got - ref).abs().max())
+    return max(d - GRAD_ABS, 0.0) / max(float(ref.abs().max()), 1e-30)
+
+
+def rqs_grad_bytes(n: int, d: int, k: int) -> int:
+    """Bytes the backward must move: x, raw, the bias, g_out and g_logdet
+    read once, g_x and g_raw written once (float32)."""
+    r = 3 * k - 1
+    return 4 * (n * d + n * d * r + r + n * d + n + n * d + n * d * r)
+
+
+def rqs_grad_ops(n: int, d: int, k: int) -> int:
+    """f32 operations of one backward call, counted per (row, dim) from
+    csrc/rqs.cu rqs_grad: the forward's recomputation (rqs_ops: ~24K + 56),
+    the two softmaxes formed again for the gradient (~4K each), the
+    gradient over the 2K bin sizes (~10 each: the cumsum transpose, the
+    softmax Jacobian and its dot product), the K-1 derivative entries and
+    ~80 for the reverse pass through the map."""
+    return n * d * (24 * k + 56 + 8 * k + 20 * k + k + 80)
+
+
+def phase_grad_kernel(torch, plain, rqs_cuda, card):
+    """(l) the backward kernel against rqs_forward_vjp at K in {4, 8, 16,
+    32} and N in {640, 257, 131072} (D = 7), with x on knots, at ±B, just
+    inside and outside, in both tails, g_logdet zero on a third of the
+    rows; then its time at the training shape (640) and at 131072 rows."""
+    insts = rqs_cuda.ptxas_instances(rqs_cuda.KERNEL.build_log, "rqs_grad")
+    check(len(insts) == 2 * len(rqs_cuda.SUPPORTED_BINS),
+          f"ptxas reported {len(insts)} backward instances")
+    for i in insts:
+        print(f"    ptxas: rqs_grad<{i['k']}, "
+              f"{'bias' if i['bias'] else 'no bias'}>: {i['registers']} "
+              f"registers, {i['stack']} B stack, {i['spill_stores']} B spill "
+              f"stores, {i['spill_loads']} B spill loads")
+        check(i["k"] != K_BINS or i["spill_stores"] == 0,
+              f"K={K_BINS} backward instance spills: {i}")
+    worst = {"abs": 0.0, "rel": 0.0}
+    for k in rqs_cuda.SUPPORTED_BINS:
+        for n in GRAD_ROWS:
+            x, raw, g_out, g_ld, bias = grad_inputs(torch, plain, n, k,
+                                                    seed=n + k)
+            for b in (None, bias):
+                ref = plain.rqs_forward_vjp(x, raw, g_out, g_ld, k, TAIL,
+                                            bias=b)
+                got = rqs_cuda.GRAD_KERNEL.launch(
+                    x, raw.reshape(n, -1), g_out, g_ld, k, TAIL, b)
+                torch.cuda.synchronize()
+                errs = [grad_err(got[0], ref[0]),
+                        grad_err(got[1].reshape(ref[1].shape), ref[1])]
+                d_abs = max(float((got[0] - ref[0]).abs().max()),
+                            float((got[1].reshape(ref[1].shape)
+                                   - ref[1]).abs().max()))
+                check(all(math.isfinite(e) and e <= GRAD_REL for e in errs),
+                      f"backward kernel K={k} N={n} bias={b is not None}: "
+                      f"{errs}")
+                if k == K_BINS:
+                    worst["abs"] = max(worst["abs"], d_abs)
+                    worst["rel"] = max(worst["rel"], *errs)
+                print(f"(l) rqs_grad K={k} N={n} D={D_TR} "
+                      f"{'bias' if b is not None else 'no bias'}: g_x "
+                      f"{errs[0]:.2e}, g_raw {errs[1]:.2e} of the largest "
+                      f"entry (tol {GRAD_REL:g} + {GRAD_ABS:g}); max|Δ| "
+                      f"{d_abs:.3e}")
+    times = {}
+    for n in (TRAIN_ROWS, N_ROWS):
+        x, raw, g_out, g_ld, bias = grad_inputs(torch, plain, n, K_BINS,
+                                                seed=7)
+        raw2 = raw.reshape(n, -1)
+        k_ms = cuda_time_ms(lambda: rqs_cuda.GRAD_KERNEL.launch(
+            x, raw2, g_out, g_ld, K_BINS, TAIL, bias), reps=50)
+        dev_ms = kernel_device_ms(torch, lambda: rqs_cuda.GRAD_KERNEL.launch(
+            x, raw2, g_out, g_ld, K_BINS, TAIL, bias), "rqs_grad")
+        p_ms = cuda_time_ms(lambda: plain.rqs_forward_vjp(
+            x, raw, g_out, g_ld, K_BINS, TAIL, bias=bias), reps=5)
+        nbytes = rqs_grad_bytes(n, D_TR, K_BINS)
+        nops = rqs_grad_ops(n, D_TR, K_BINS)
+        by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOPS
+        bound_ms = max(by_bytes, by_ops) * 1e3
+        bound_by = "bytes" if by_bytes >= by_ops else "operations"
+        # the kernel's time is its device time where the profiler gives it:
+        # at 640 rows the wrapper's host time is longer than the kernel
+        times[n] = {"ms": k_ms if dev_ms is None else dev_ms,
+                    "ms_from": ("CUDA events" if dev_ms is None
+                                else "profiler device time"),
+                    "events_ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+        dev_txt = ("not measured" if dev_ms is None
+                   else f"{dev_ms * 1e3:.2f} us")
+        print(f"(l) rqs_grad<{K_BINS}, bias> N={n} D={D_TR} [{card}]: kernel "
+              f"{k_ms * 1e3:.2f} us/launch by CUDA events over back-to-back "
+              f"launches (the wrapper's host time included), device time "
+              f"a launch {dev_txt} (profiler), plain VJP "
+              f"{p_ms * 1e3:.1f} us, "
+              f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {nbytes} B at "
+              f"3.35 TB/s = {by_bytes * 1e6:.2f} us, {nops} f32 ops at 67 "
+              f"TFLOP/s = {by_ops * 1e6:.2f} us), "
+              f"{bound_ms / times[n]['ms']:.1%} of its bound")
+    return {"times": times, "max_abs_err": worst["abs"],
+            "max_rel_err": worst["rel"]}
+
+
+def kernel_device_ms(torch, fn, name: str, reps: int = 20):
+    """Device time of one launch of the kernel `name` that fn() launches
+    (torch.profiler over `reps` calls; None without CUPTI). A small launch
+    is shorter than the host's time to issue it, which CUDA events over
+    back-to-back launches measure instead."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.key]
+    except RuntimeError:
+        return None
+    count = sum(e.count for e in evs)
+    if count == 0:
+        return None
+    return sum(e.self_device_time_total for e in evs) / count / 1e3
+
+
+def grad_inputs(torch, plain, n: int, k: int, seed: int):
+    """Card inputs of the backward: x, raw as spline_inputs draws them at
+    K, upstream g_out N(0, 1) and g_logdet N(0, 1) with every third row 0,
+    a bias; the first rows put x on its own spline's knots, at ±B, just
+    inside and just outside."""
+    rng = np.random.default_rng(seed)
+    r = 3 * k - 1
+    x = torch.from_numpy(np.clip(rng.standard_normal((n, D_TR)) * 2.5, -6.0,
+                                 6.0).astype(np.float32)).to(DEVICE)
+    raw = torch.from_numpy((rng.standard_normal((n, D_TR, r)) * 0.7)
+                           .astype(np.float32)).to(DEVICE)
+    bias = torch.from_numpy((rng.standard_normal(r) * 0.5)
+                            .astype(np.float32)).to(DEVICE)
+    g_out = torch.from_numpy(rng.standard_normal((n, D_TR))
+                             .astype(np.float32)).to(DEVICE)
+    g_ld = rng.standard_normal(n).astype(np.float32)
+    g_ld[::3] = 0.0
+    g_ld = torch.from_numpy(g_ld).to(DEVICE)
+    xk, _, _ = plain._normalize_params(raw[:4] + bias, k, TAIL)
+    j = 1 + torch.arange(D_TR, device=DEVICE) % (k - 1)
+    x[:4] = torch.gather(xk, -1, j[None, :, None].expand(4, D_TR, 1))[..., 0]
+    edge = float(np.nextafter(np.float32(TAIL), np.float32(0)))
+    x[4], x[5], x[6], x[7] = TAIL, -TAIL, edge, -float(
+        np.nextafter(np.float32(TAIL), np.float32(10)))
+    return x, raw, g_out, g_ld, bias
+
+
+def _to(batch, dev):
+    return type(batch)(*[t.to(dev) for t in batch])
+
+
+def _count_plain(torch, plain):
+    """Wrap the plain spline's entry points with a call counter; returns
+    (counts, restore)."""
+    counts = {"forward": 0, "inverse": 0}
+    saved = (plain.rqs_forward, plain.rqs_inverse)
+
+    def counted(name, fn):
+        def inner(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return inner
+    plain.rqs_forward = counted("forward", saved[0])
+    plain.rqs_inverse = counted("inverse", saved[1])
+
+    def restore():
+        plain.rqs_forward, plain.rqs_inverse = saved
+    return counts, restore
+
+
+def _leaf_errs(got: dict, ref: dict):
+    """(worst leaf's max|Δ| over its largest |entry|, after TRAIN_GRAD_ABS
+    of the largest entry of any leaf; that leaf; the whole gradient's
+    |Δ|/|g|)."""
+    scale = max(float(g.abs().max()) for g in ref.values())
+    worst, name = 0.0, ""
+    for n, g in ref.items():
+        d = float((got[n] - g).abs().max())
+        rel = max(d - TRAIN_GRAD_ABS * scale, 0.0) / max(
+            float(g.abs().max()), 1e-30)
+        if rel > worst:
+            worst, name = rel, n
+    d2 = sum(float(((got[n] - g).double() ** 2).sum()) for n, g in ref.items())
+    g2 = sum(float((g.double() ** 2).sum()) for g in ref.values())
+    return worst, name, math.sqrt(d2 / g2)
+
+
+def _set_switches(torch, switches):
+    torch.set_float32_matmul_precision(switches[0])
+    torch.backends.cudnn.allow_tf32 = switches[1]
+
+
+def phase_train_parity(torch, plain, rqs_cuda, cfg, state_dict, card):
+    """(m, part 1) fixed batches of TRAIN_PARITY_EVENTS events simulated on
+    the CPU, one for each of TRAIN_PARITY_SEEDS, the flagship with its flow
+    and encoder in float32: loss, component gradient norms and every
+    gradient leaf on the card with the spline kernels forward and backward,
+    under torch's default TF32 switches, against the card with the plain
+    spline (the kernels' own share) and against the CPU. The TF32 guard of
+    trainer.backward: the card under torch's defaults and with TF32 allowed
+    for matmuls too (as a caller may set it) against the card with TF32
+    off, and the two controls, which lift that guard, held above the same
+    tolerance at every seed. The control against the CPU is reported: the
+    card-vs-CPU leg cannot see TF32 through the order-of-summation noise."""
+    import contextlib
+
+    from posteriflow_torch.models.npe import LeanNPE
+    from posteriflow_torch.physics.simulator import simulate_batch
+    from posteriflow_torch.train import trainer
+    npe32 = dataclasses.replace(cfg.npe, flow_dtype="float32",
+                                encoder_dtype="float32")
+    kernel_fwd, guard = rqs_cuda.rqs_forward, trainer.fp32_exact
+    # (float32 matmul precision, cudnn.allow_tf32)
+    defaults, tf32, off = ("highest", True), ("high", True), ("highest", False)
+    # label -> (device, switches, plain spline, backward's guard lifted)
+    runs = {"kernels": (DEVICE, defaults, False, False),
+            "plain on the card": (DEVICE, defaults, True, False),
+            "cpu": ("cpu", defaults, False, False),
+            "kernels, TF32 off": (DEVICE, off, False, False),
+            "kernels, TF32 allowed": (DEVICE, tf32, False, False),
+            "control: backward unguarded": (DEVICE, defaults, False, True),
+            "control: backward unguarded, TF32 allowed":
+                (DEVICE, tf32, False, True)}
+    # (run, reference, loss tol, norm and leaf tol, role): "held" at most
+    # the tolerances, "control" its mildest seed above the leaf tolerance
+    strict = "kernels, TF32 off"
+    legs = (("kernels", "plain on the card", TRAIN_KERNEL_TOL,
+             TRAIN_KERNEL_TOL, "held"),
+            ("kernels", "cpu", TRAIN_LOSS_TOL, TRAIN_TOL, "held"),
+            ("kernels", strict, TF32_GUARD_TOL, TF32_GUARD_TOL, "held"),
+            ("kernels, TF32 allowed", strict, TF32_GUARD_TOL,
+             TF32_GUARD_TOL, "held"),
+            ("control: backward unguarded", strict, None, TF32_GUARD_TOL,
+             "control"),
+            ("control: backward unguarded, TF32 allowed", strict, None,
+             TF32_GUARD_TOL, "control"),
+            ("control: backward unguarded, TF32 allowed", "cpu", None, None,
+             "reported"))
+
+    def run(batch, label):
+        dev, switches, plain_spline, unguarded = runs[label]
+        _set_switches(torch, switches)
+        if plain_spline:
+            rqs_cuda.rqs_forward = (lambda x, r, k, tb=TAIL, bias=None:
+                                    plain.rqs_forward(x, r + bias, k, tb))
+        if unguarded:
+            trainer.fp32_exact = contextlib.nullcontext
+        try:
+            model = LeanNPE(npe32)
+            model.load_state_dict(state_dict, strict=True)
+            model.to(dev)
+            f0 = rqs_cuda.GRAD_KERNEL.launches
+            loss = trainer.batch_nll(model, _to(batch, dev))
+            trainer.backward(loss)
+            launched = rqs_cuda.GRAD_KERNEL.launches - f0
+        finally:
+            rqs_cuda.rqs_forward, trainer.fp32_exact = kernel_fwd, guard
+        return (float(loss.detach()),
+                {k: float(v) for k, v in
+                 trainer.component_grad_norms(model).items()},
+                {n: p.grad.cpu() for n, p in model.named_parameters()},
+                launched)
+
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    out = {}
+    try:
+        for seed in TRAIN_PARITY_SEEDS:
+            batch = simulate_batch(TRAIN_PARITY_EVENTS, cfg.sim,
+                                   device="cpu",
+                                   generator=torch.Generator().manual_seed(
+                                       seed))
+            res = {label: run(batch, label) for label in runs}
+            check(res["kernels"][3] == npe32.flow_layers
+                  and res["plain on the card"][3] == 0,
+                  f"backward kernel launches {res['kernels'][3]} / "
+                  f"{res['plain on the card'][3]}")
+            for got, ref, tol_loss, tol, role in legs:
+                (lg, ng, gg, _), (lr, nr, gr, _) = res[got], res[ref]
+                worst, name, glob = _leaf_errs(gg, gr)
+                d_loss = abs(lg - lr) / max(1.0, abs(lr))
+                d_norm = max(abs(ng[k] - nr[k]) / max(nr[k], 1e-30)
+                             for k in nr)
+                print(f"(m) train step, seed {seed} (n_sig "
+                      f"{batch.n_sig.tolist()}), {got} against {ref} "
+                      f"[{card}]: loss {lg:.6f} vs {lr:.6f} (rel "
+                      f"{d_loss:.2e}), component grad norms rel max "
+                      f"{d_norm:.2e}, gradient |Δ|/|g| {glob:.2e}, worst "
+                      f"leaf {worst:.2e} ({name}); "
+                      + (f"tol {tol_loss:g} / {tol:g}" if role == "held"
+                         else f"control, above {tol:g}"
+                         if role == "control" else "reported"))
+                if role == "held":
+                    check(math.isfinite(lg) and d_loss <= tol_loss,
+                          f"train loss, {got} against {ref}, differs by "
+                          f"{d_loss}")
+                    check(d_norm <= tol, f"component grad norms, {got} "
+                                         f"against {ref}, differ by {d_norm}")
+                    check(worst <= tol, f"gradient leaf {name}, {got} "
+                                        f"against {ref}, differs by {worst}")
+                # each leg keeps its worst seed, a control its mildest
+                key = f"{got} / {ref}"
+                prev = out.get(key, {}).get("leaf")
+                if prev is None or ((worst < prev) if role == "control"
+                                    else (worst > prev)):
+                    out[key] = {"loss": d_loss, "norms": d_norm,
+                                "leaf": worst, "leaf_name": name,
+                                "global": glob, "seed": seed}
+        worst = {k: f"{v['leaf']:.2e}" for k, v in out.items()}
+        print(f"(m) over seeds {list(TRAIN_PARITY_SEEDS)}, "
+              f"{TRAIN_PARITY_EVENTS} events each, float32, worst leaf of "
+              f"each run / reference (a control: its mildest): {worst} "
+              f"[{card}]")
+        for got, ref, _, tol, role in legs:
+            if role == "control":
+                ctl = out[f"{got} / {ref}"]["leaf"]
+                check(ctl > tol, f"the TF32 guard's tolerance {tol:g} does "
+                                 f"not see {got} ({ctl:.2e})")
+        # as released (bfloat16 matmuls), under torch's defaults: reported,
+        # not held (one flipped bf16 rounding moves a steep NLL's gradient
+        # far; float32 is the parity path)
+        _set_switches(torch, defaults)
+        bf = {}
+        for dev in (DEVICE, "cpu"):
+            model = LeanNPE(cfg.npe)
+            model.load_state_dict(state_dict, strict=True)
+            model.to(dev)
+            loss = trainer.batch_nll(model, _to(batch, dev))
+            trainer.backward(loss)
+            bf[dev] = (float(loss.detach()),
+                       {n: p.grad.cpu() for n, p in model.named_parameters()})
+        _, _, glob = _leaf_errs(bf[DEVICE][1], bf["cpu"][1])
+        print(f"(m) the last batch as released ({cfg.npe.flow_dtype} flow, "
+              f"{cfg.npe.encoder_dtype} encoder), card against CPU, reported "
+              f"only [{card}]: loss {bf[DEVICE][0]:.6f} vs "
+              f"{bf['cpu'][0]:.6f}, gradient |Δ|/|g| {glob:.2e}")
+    finally:
+        _set_switches(torch, saved)
+    return out
+
+
+def phase_train_steps(torch, plain, rqs_cuda, cfg, card):
+    """(m, part 2) TRAIN_STEPS steps of simulate -> batch_nll -> backward ->
+    clip -> AdamW at the flagship's full width, from the release's weights
+    (--init-from), timed by part with CUDA events."""
+    from posteriflow_torch.physics.simulator import simulate_batch
+    from posteriflow_torch.tools.bench_train import (PEAK_BF16_FLOPS,
+                                                     flops_per_step)
+    from posteriflow_torch.train.checkpoints import load_release
+    from posteriflow_torch.train.loop import _merge_params
+    from posteriflow_torch.train.trainer import (backward, batch_nll,
+                                                 init_state)
+    state = init_state(cfg, generator=torch.Generator().manual_seed(0),
+                       device=DEVICE)
+    merged, kept, total = _merge_params(state.model.state_dict(),
+                                        load_release(RELEASE)[0])
+    check(kept == total, f"init-from transferred {kept}/{total} leaves")
+    state.model.load_state_dict(merged)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    layers = cfg.npe.flow_layers
+    counts, restore = _count_plain(torch, plain)
+    nlls, parts, walls, launches = [], [], [], []
+    moved = []
+    torch.cuda.reset_peak_memory_stats()
+    rqs_cuda.KERNEL.launches = rqs_cuda.GRAD_KERNEL.launches = 0
+    try:
+        for i in range(TRAIN_STEPS):
+            before = [p.detach().clone() for p in state.model.parameters()]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            f0 = rqs_cuda.KERNEL.launches
+            b0 = rqs_cuda.GRAD_KERNEL.launches
+            t0 = time.perf_counter()
+            ev[0].record()
+            batch = simulate_batch(cfg.batch_size, cfg.sim, device=DEVICE,
+                                   generator=gen)
+            ev[1].record()
+            state.opt.zero_grad()
+            loss = batch_nll(state.model, batch)
+            ev[2].record()
+            backward(loss)
+            ev[3].record()
+            state.opt.step()
+            ev[4].record()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            parts.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+            nlls.append(float(loss.detach()))
+            launches.append((rqs_cuda.KERNEL.launches - f0,
+                             rqs_cuda.GRAD_KERNEL.launches - b0))
+            moved.append(any(not torch.equal(a, p.detach()) for a, p in
+                             zip(before, state.model.parameters())))
+    finally:
+        restore()
+    path = (rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the steady state: every step after the first (which builds and warms)
+    steady = parts[1:]
+    mean = [sum(p[j] for p in steady) / len(steady) for j in range(4)]
+    step_ms = sum(walls[1:]) / len(walls[1:])
+    steps_per_s = 1e3 / step_ms
+    flops = flops_per_step(state, simulate_batch(cfg.batch_size, cfg.sim,
+                                                 device=DEVICE,
+                                                 generator=gen))
+    mfu = flops * steps_per_s / PEAK_BF16_FLOPS
+    profile = profile_train_step(torch, state, cfg, gen, card)
+    print(f"(m) {TRAIN_STEPS} train steps, batch {cfg.batch_size}, flagship "
+          f"15-D (bf16 matmuls as released, weights from {RELEASE}) "
+          f"[{card}]: NLL by step {[round(v, 4) for v in nlls]}")
+    print(f"(m) step split over steps 2-{TRAIN_STEPS} by CUDA events: "
+          f"simulate {mean[0]:.3f} ms, forward {mean[1]:.3f} ms, backward "
+          f"{mean[2]:.3f} ms, optimizer {mean[3]:.3f} ms; host wall "
+          f"{step_ms:.3f} ms a step (first step {walls[0]:.1f} ms): "
+          f"{steps_per_s:.3f} steps/s, {steps_per_s * cfg.batch_size:.1f} "
+          f"events/s; peak memory {peak:.2f} GiB; {flops / 1e9:.1f} GFLOP a "
+          f"step counted (matmuls and convs, not the spline kernels), MFU "
+          f"{mfu:.4%} of the 989 TFLOP/s bf16 peak; spline launches a step "
+          f"(forward, backward) {sorted(set(launches))}, plain spline calls "
+          f"{counts}; parameters moved at step 0: {moved[0]}, step 1: "
+          f"{moved[1]}")
+    check(all(math.isfinite(v) for v in nlls), f"non-finite NLL: {nlls}")
+    check(TRAIN_NLL0[0] <= nlls[0] <= TRAIN_NLL0[1],
+          f"step-0 NLL {nlls[0]} outside {TRAIN_NLL0}")
+    check(not moved[0] and moved[1],
+          f"parameters moved at steps 0/1: {moved[:2]} (lr(0) is 0)")
+    check(all(lc == (layers, layers) for lc in launches),
+          f"spline launches by step {launches}, expected {layers} each way")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"the plain spline ran in the train steps: {counts}")
+    return {"nlls": nlls, "split_ms": mean, "step_ms": step_ms,
+            "steps_per_s": steps_per_s,
+            "events_per_s": steps_per_s * cfg.batch_size, "peak_gib": peak,
+            "flops": flops, "mfu": mfu, "profile": profile,
+            "launches": path}
+
+
+def profile_train_step(torch, state, cfg, gen, card):
+    """Device time of one train step by kernel (torch.profiler): the busy
+    share of the step's window, its launches and the kernels that take most
+    of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from posteriflow_torch.physics.simulator import simulate_batch
+    from posteriflow_torch.train.trainer import train_step
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train_step(state, simulate_batch(cfg.batch_size, cfg.sim,
+                                             device=DEVICE, generator=gen))
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    except RuntimeError as e:           # no CUPTI on this machine
+        print(f"(m) profiler: not available ({e})")
+        return None
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    print(f"(m) profile of one train step [{card}]: kernels "
+          f"{busy_us / 1e3:.3f} ms of a {window_us / 1e3:.3f} ms window "
+          f"(device busy {busy_us / window_us:.1%}, under the profiler); "
+          f"{launches} launches; top kernels:")
+    for e in kernels[:10]:
+        print(f"      {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+              f"{e.key[:100]}")
+    return {"busy_ms": busy_us / 1e3, "window_ms": window_us / 1e3,
+            "launches": launches}
+
+
+def phase_fit(torch, rqs_cuda, cfg, card):
+    """(n) fit 2 epochs x 5 steps at the flagship's batch from the release,
+    then resume 1 epoch from ckpt/last, then serve one event from
+    ckpt/best."""
+    import tempfile
+
+    from posteriflow_torch.inference.pipeline import InferenceEngine
+    from posteriflow_torch.train.loop import fit
+    with open(f"{RELEASE}/meta.json") as f:
+        jax_keys = {k for k in json.load(f)["metrics"]
+                    if not k.startswith("real_")}
+    with tempfile.TemporaryDirectory() as tmp:
+        rqs_cuda.KERNEL.launches = rqs_cuda.GRAD_KERNEL.launches = 0
+        t0 = time.perf_counter()
+        _, hist = fit(cfg, tmp, epochs=2, steps_per_epoch=FIT_STEPS,
+                      n_val_events=FIT_VAL_EVENTS, init_from=RELEASE,
+                      device=DEVICE)
+        fit_s = time.perf_counter() - t0
+        fit_launches = (rqs_cuda.KERNEL.launches,
+                        rqs_cuda.GRAD_KERNEL.launches)
+        with open(f"{tmp}/history.json") as f:
+            saved = json.load(f)
+        ckpt = f"{tmp}/ckpt"
+        have = {n: os.path.isdir(f"{ckpt}/{n}") for n in ("last", "best")}
+        _, hist2 = fit(cfg, tmp, epochs=1, steps_per_epoch=FIT_STEPS,
+                       n_val_events=FIT_VAL_EVENTS,
+                       resume_from=f"{ckpt}/last", device=DEVICE)
+        eng = InferenceEngine.from_checkpoint(ckpt, "best", device=DEVICE)
+        ctx = eng.encode(np.zeros((1, 3, 16384), np.float32),
+                         np.zeros((1, 3, eng.cfg.psd_bands), np.float32))
+        theta, log_q, _ = eng.sample_posterior(
+            ctx, 0, N_SAMPLES, generator=torch.Generator(
+                device=DEVICE).manual_seed(0))
+        torch.cuda.synchronize()
+    gate = ("spurious_railing", "base_conc", "cov90_mean",
+            "cov90_highsnr_mean", "sbc_pass_frac", "val_nll", "train_nll")
+    finite = all(math.isfinite(h[k]) for h in hist for k in gate)
+    print(f"(n) fit 2 epochs x {FIT_STEPS} steps, batch {cfg.batch_size}, "
+          f"{FIT_VAL_EVENTS} validation events, from {RELEASE} [{card}]: "
+          f"{fit_s:.1f} s; val_nll {[round(h['val_nll'], 4) for h in hist]}, "
+          f"gate {[h['gate_passed'] for h in hist]}, lr_step "
+          f"{[h['lr_step'] for h in hist]}; spline launches (forward, "
+          f"backward) {fit_launches}; history keys as JAX's "
+          f"{set(saved[-1]) == jax_keys}; checkpoints {have}; resumed to "
+          f"epochs {[h['epoch'] for h in hist2]} lr_step "
+          f"{[h['lr_step'] for h in hist2]}; from_checkpoint(best) drew "
+          f"{tuple(theta.shape)}")
+    check(set(saved[-1]) == jax_keys,
+          f"history keys {sorted(set(saved[-1]) ^ jax_keys)} differ")
+    check(finite, "non-finite gate metrics")
+    check(all(have.values()), f"checkpoints missing: {have}")
+    check([h["epoch"] for h in hist2] == [1, 2, 3]
+          and hist2[-1]["lr_step"] == 3 * FIT_STEPS,
+          f"resume did not continue: {[(h['epoch'], h['lr_step']) for h in hist2]}")
+    check(tuple(theta.shape) == (1, N_SAMPLES, eng.cfg.n_params)
+          and bool(torch.isfinite(theta).all() and torch.isfinite(log_q).all()),
+          "from_checkpoint samples")
+    return {"launches": fit_launches, "seconds": fit_s}
 
 
 def main() -> int:
@@ -732,7 +1353,15 @@ def main() -> int:
         path = phase_bench_path(torch, rqs_cuda, engine, sim_cfg, card)
         inj_launches = phase_inject(torch, rqs_cuda, engine, card)
         phase_tf32(torch, InferenceEngine, card)
-        phase_grad_guard(torch, rqs_cuda)
+        phase_grad_guard(torch, plain, rqs_cuda)
+        grad = phase_grad_kernel(torch, plain, rqs_cuda, card)
+
+        from posteriflow_torch.utils.config import load_config
+        train_cfg = load_config(f"{RELEASE}/meta.json")
+        parity = phase_train_parity(torch, plain, rqs_cuda, train_cfg,
+                                    state_dict, card)
+        train = phase_train_steps(torch, plain, rqs_cuda, train_cfg, card)
+        fitted = phase_fit(torch, rqs_cuda, train_cfg, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -747,7 +1376,11 @@ def main() -> int:
         "launches": path["launches"],
         "launches_by_path": {"simulate-encode-sample (h)": path["launches"],
                              f"serve {N_REQUESTS} requests (c)": launches,
-                             "injection request (i)": inj_launches},
+                             "injection request (i)": inj_launches,
+                             f"train {TRAIN_STEPS} steps (m)":
+                                 train["launches"][0],
+                             "fit 2 epochs + resume 1 (n)":
+                                 fitted["launches"][0]},
         "max_abs_err": max(errs["inverse"][0], errs["forward"][0]),
         "max_abs_err_logdet": max(errs["inverse"][1], errs["forward"][1]),
         "ms": k_ms, "plain_ms": p_ms,
@@ -756,12 +1389,35 @@ def main() -> int:
         "forward_no_bias_ms": bench["times"]["forward no bias"][0],
         "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "rqs_grad<16, bias> (RQS spline backward, training)",
+        "route": "cuda",
+        "source": "posteriflow_torch/csrc/rqs.cu",
+        "replaces": "posteriflow_tpu/models/flow.py:96",
+        "launches": train["launches"][1],
+        "launches_by_path": {f"train {TRAIN_STEPS} steps (m)":
+                                 train["launches"][1],
+                             "fit 2 epochs + resume 1 (n)":
+                                 fitted["launches"][1]},
+        "max_abs_err": grad["max_abs_err"],
+        "max_rel_err": grad["max_rel_err"],
+        "train_step_vs_plain": parity["kernels / plain on the card"],
+        "ms": grad["times"][TRAIN_ROWS]["ms"],
+        "ms_from": grad["times"][TRAIN_ROWS]["ms_from"],
+        "events_ms": grad["times"][TRAIN_ROWS]["events_ms"],
+        "plain_ms": grad["times"][TRAIN_ROWS]["plain_ms"],
+        "bound_ms": grad["times"][TRAIN_ROWS]["bound_ms"],
+        "bound_by": grad["times"][TRAIN_ROWS]["bound_by"],
+        f"rows_{N_ROWS}": grad["times"][N_ROWS],
+        "library_ms": None,
     }]
     print(f"(e) done in {time.perf_counter() - t_start:.1f} s [{card}]; "
           f"draws/s {bench['draws_per_s']:.0f} (noise batch, d), "
           f"{path['draws_per_s']:.0f} (simulated batch, h); simulate_batch "
           f"{sim_ms[BENCH_EVENTS]:.3f} ms at B={BENCH_EVENTS}, "
-          f"{sim_ms[TRAIN_BATCH]:.3f} ms at B={TRAIN_BATCH}")
+          f"{sim_ms[TRAIN_BATCH]:.3f} ms at B={TRAIN_BATCH}; training "
+          f"{train['steps_per_s']:.3f} steps/s, {train['events_per_s']:.1f} "
+          f"events/s at batch {train_cfg.batch_size}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

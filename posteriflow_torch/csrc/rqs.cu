@@ -1,5 +1,6 @@
 // Rational-quadratic spline (RQS) bijection, forward and inverse, for Hopper
-// (sm_90a). Plain C interface, built with nvcc and loaded with ctypes by
+// (sm_90a), and the backward of the forward (rqs_grad, after rqs_tile).
+// Plain C interface, built with nvcc and loaded with ctypes by
 // posteriflow_torch/ops/rqs_cuda.py.
 //
 // Replaces the TPU kernel posteriflow_tpu/ops/pallas_rqs.py:_pallas_rqs
@@ -362,6 +363,227 @@ rqs_tile(const float* __restrict__ x, const float* __restrict__ raw,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward of the forward direction: rqs_grad<K, BIAS>.
+//
+// The TPU package has no Pallas VJP: it trains through the XLA spline
+// (posteriflow_tpu/models/flow.py:96, use_pallas=False). Here the training
+// path runs rqs_tile<K, false, BIAS> forward, and this kernel gives the
+// gradients that autograd through the plain version
+// (posteriflow_torch/ops/rqs.py rqs_forward_vjp) gives: for upstream g_out
+// [N, D] and g_logdet [N], g_x [N, D] and g_raw [N, D·(3K-1)]. The bias is
+// a constant (the conditioner's derivative init) and gets no gradient.
+//
+// Per spline, one thread: the knots, the bin and every value of the map are
+// recomputed by the forward's own device functions and expressions (built
+// with -fmad=false), so the bin is the forward's bin. Then reverse through
+// the RQ map as autograd takes clamp and where: the gradient passes through
+// clamp(theta, 0, 1) inclusive of the ends and through max(dydx, 1e-30)
+// where dydx >= 1e-30; in the tails g_x = g_out and g_raw = 0. It reaches
+// raw through the two knots of the bin on each axis (a knot j moves with
+// every bin size i < j, times 2B; the pinned ends take nothing), the
+// softmax Jacobian times (1 - 1e-3·K), and the sigmoid of the bin's two
+// interior derivatives (softplus' as torch takes it: 1 above 20).
+//
+// Bound: at the training shape (N = 640, D = 7, K = 16) it reads x, raw,
+// g_out, g_logdet and writes g_x, g_raw: 1.74 MB, half a microsecond at
+// 3.35 TB/s, so the launch sets its time; at N = 131072 it moves 357 MB.
+// Design: a block of 64 threads stages its 64 splines' raw (12 KB at
+// K = 16) in shared memory with coalesced loads, all of a full tile's loads
+// issued before the first is used; each thread reads its spline at stride
+// 3K-1 (odd, so no bank conflicts), writes its g_raw over its own raw
+// there, and the block stores the tile with coalesced writes. Small blocks
+// spread the training shape's 4,480 splines over 70 SMs: a thread's work is
+// a long dependent chain (four K-way softmaxes with IEEE divisions, the
+// map and its reverse), so the time there is latency, not bytes.
+constexpr int kGradThreads = 64;
+
+// One spline's gradients: r holds its 3K-1 raw values and gets g_raw in
+// their place; returns g_x.
+template <int K, bool BIAS>
+__device__ __forceinline__ float spline_grad(float* r, const float* b,
+                                             float v, float g_y, float g_l,
+                                             float bound) {
+  constexpr int R = 3 * K - 1;
+  const float min_w = (float)kMinBinWidth;
+  const float scale_w = (float)(1.0 - kMinBinWidth * K);
+  const float min_h = (float)kMinBinHeight;
+  const float scale_h = (float)(1.0 - kMinBinHeight * K);
+  if (!(fabsf(v) <= bound)) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) r[k] = 0.f;
+    return g_y;
+  }
+  const float vs = fminf(fmaxf(v, -bound), bound);
+
+  // the forward's knots, bin and derivatives
+  float kn[K + 1];
+  knots<K, BIAS>(r, b, min_w, scale_w, bound, kn);
+  int idx = 0;
+#pragma unroll
+  for (int k = 1; k < K; ++k) idx += (vs >= kn[k]) ? 1 : 0;
+  float x_lo = kn[0], x_hi = kn[1];
+#pragma unroll
+  for (int k = 1; k < K; ++k) {
+    if (idx == k) {
+      x_lo = kn[k];
+      x_hi = kn[k + 1];
+    }
+  }
+  float y_lo, y_hi;
+  knot_pair<K, BIAS>(r + K, b + K, min_h, scale_h, bound, idx, y_lo, y_hi);
+  const int i_lo = 2 * K + (idx > 0 ? idx - 1 : 0);
+  const int i_hi = 2 * K + (idx < K - 1 ? idx : K - 2);
+  const float u_lo = raw_at<BIAS>(r, b, i_lo);
+  const float u_hi = raw_at<BIAS>(r, b, i_hi);
+  const float d_lo = idx == 0 ? 1.f : kMinDerivative + softplus(u_lo);
+  const float d_hi = idx == K - 1 ? 1.f : kMinDerivative + softplus(u_hi);
+
+  // the forward's map
+  const float wb = x_hi - x_lo;
+  const float hb = y_hi - y_lo;
+  const float s = hb / wb;
+  const float dsum = d_hi + d_lo - 2.f * s;
+  const float theta_raw = (vs - x_lo) / wb;
+  const float theta = fminf(fmaxf(theta_raw, 0.f), 1.f);
+  const float t1m = 1.f - theta;
+  const float tt = theta * t1m;
+  const float denom = s + dsum * tt;
+  const float theta2 = theta * theta;
+  const float num = s * theta2 + d_lo * tt;
+  const float m = d_hi * theta2 + 2.f * s * tt + d_lo * (t1m * t1m);
+  const float dydx = s * s * m / (denom * denom);
+
+  // y = y_lo + hb·num/denom and log(max(dydx, 1e-30)), in reverse
+  const float g_dydx = dydx >= 1e-30f ? g_l / dydx : 0.f;
+  const float den2 = denom * denom;
+  const float g_num = g_y * hb / denom;
+  const float g_m = g_dydx * (s * s) / den2;
+  const float g_den = -g_y * hb * num / den2
+                      - g_dydx * 2.f * (s * s) * m / (den2 * denom);
+  float g_h = g_y * num / denom;
+  const float g_s = g_num * theta2 + g_den * (1.f - 2.f * tt)
+                    + g_dydx * 2.f * s * m / den2 + g_m * 2.f * tt;
+  const float g_dlo = (g_num + g_den) * tt + g_m * (t1m * t1m);
+  const float g_dhi = g_den * tt + g_m * theta2;
+  const float g_tt = g_num * d_lo + g_den * dsum + g_m * 2.f * s;
+  const float g_t1m = g_tt * theta + g_m * 2.f * d_lo * t1m;
+  const float g_theta = g_num * 2.f * s * theta + g_m * 2.f * d_hi * theta
+                        + g_tt * t1m - g_t1m;
+  const float g_th_raw =
+      (theta_raw >= 0.f && theta_raw <= 1.f) ? g_theta : 0.f;
+  const float g_vs = g_th_raw / wb;
+  float g_w = -g_th_raw * theta_raw / wb;
+  g_h += g_s / wb;
+  g_w -= g_s * s / wb;
+  const float g_xhi = g_w;
+  const float g_xlo = -g_th_raw / wb - g_w;
+  const float g_yhi = g_h;
+  const float g_ylo = g_y - g_h;
+
+  // knots -> bin sizes -> softmax, for each axis; knot j is interior for
+  // 1 <= j <= K-1, and moves with size i < j
+  const float two_b = 2.f * bound;
+  const float c_lo_x = idx >= 1 ? g_xlo : 0.f;
+  const float c_hi_x = idx + 1 <= K - 1 ? g_xhi : 0.f;
+  const float c_lo_y = idx >= 1 ? g_ylo : 0.f;
+  const float c_hi_y = idx + 1 <= K - 1 ? g_yhi : 0.f;
+#pragma unroll
+  for (int axis = 0; axis < 2; ++axis) {
+    float* ra = r + axis * K;
+    const float scale = axis == 0 ? scale_w : scale_h;
+    const float c_lo = axis == 0 ? c_lo_x : c_lo_y;
+    const float c_hi = axis == 0 ? c_hi_x : c_hi_y;
+    float e[K];
+    const float sum = softmax_exp<K, BIAS>(ra, b + axis * K, e);
+    float dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      e[k] = e[k] / sum;                                   // p_k
+      const float g_p = scale * two_b
+                        * ((k < idx ? c_lo : 0.f) + (k <= idx ? c_hi : 0.f));
+      dot += e[k] * g_p;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float g_p = scale * two_b
+                        * ((k < idx ? c_lo : 0.f) + (k <= idx ? c_hi : 0.f));
+      ra[k] = e[k] * (g_p - dot);
+    }
+  }
+  // the two interior derivatives of the bin: softplus' = sigmoid
+  const float z_lo = expf(u_lo), z_hi = expf(u_hi);
+  const float sg_lo = u_lo > 20.f ? 1.f : z_lo / (z_lo + 1.f);
+  const float sg_hi = u_hi > 20.f ? 1.f : z_hi / (z_hi + 1.f);
+#pragma unroll
+  for (int k = 0; k < K - 1; ++k) {
+    float g = 0.f;
+    if (idx > 0 && k == idx - 1) g += g_dlo * sg_lo;
+    if (idx < K - 1 && k == idx) g += g_dhi * sg_hi;
+    r[2 * K + k] = g;
+  }
+  return g_vs;
+}
+
+template <int K, bool BIAS>
+__global__ void __launch_bounds__(kGradThreads)
+rqs_grad(const float* __restrict__ x, const float* __restrict__ raw,
+         const float* __restrict__ bias, const float* __restrict__ g_out,
+         const float* __restrict__ g_logdet, float* __restrict__ g_x,
+         float* __restrict__ g_raw, int n, int d, float bound) {
+  constexpr int R = 3 * K - 1;
+  constexpr int T = kGradThreads;
+  __shared__ float s_raw[T * R];
+  __shared__ float s_bias[R];
+  const long long first = (long long)blockIdx.x * T;
+  const int count = (int)min((long long)T, (long long)n * d - first);
+  if (BIAS) {
+    for (int k = threadIdx.x; k < R; k += T) s_bias[k] = bias[k];
+  }
+  const float* src = raw + first * R;
+  if (count == T) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      s_raw[j * T + threadIdx.x] = src[j * T + threadIdx.x];
+    }
+  } else {
+    for (int i = threadIdx.x; i < count * R; i += T) s_raw[i] = src[i];
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < count) {
+    const long long sp = first + threadIdx.x;
+    g_x[sp] = spline_grad<K, BIAS>(s_raw + threadIdx.x * R, s_bias, x[sp],
+                                   g_out[sp], g_logdet[sp / d], bound);
+  }
+  __syncthreads();
+  float* dst = g_raw + first * R;
+  for (int i = threadIdx.x; i < count * R; i += T) dst[i] = s_raw[i];
+}
+
+template <int K, bool BIAS>
+int launch_grad(const float* x, const float* raw, const float* bias,
+                const float* g_out, const float* g_logdet, float* g_x,
+                float* g_raw, int n, int d, float bound,
+                cudaStream_t stream) {
+  constexpr int T = kGradThreads;
+  const long long splines = (long long)n * d;
+  const int grid = (int)((splines + T - 1) / T);
+  rqs_grad<K, BIAS><<<grid, T, 0, stream>>>(x, raw, bias, g_out, g_logdet,
+                                            g_x, g_raw, n, d, bound);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int dispatch_grad(const float* x, const float* raw, const float* bias,
+                  const float* g_out, const float* g_logdet, float* g_x,
+                  float* g_raw, int n, int d, float bound,
+                  cudaStream_t stream) {
+  return bias ? launch_grad<K, true>(x, raw, bias, g_out, g_logdet, g_x,
+                                     g_raw, n, d, bound, stream)
+              : launch_grad<K, false>(x, raw, bias, g_out, g_logdet, g_x,
+                                      g_raw, n, d, bound, stream);
+}
+
 struct Launch {
   const float* x;
   const float* raw;
@@ -429,6 +651,42 @@ extern "C" int pf_rqs_launch(const void* x, const void* raw, const void* bias,
     case 8: return dispatch<8>(a, inverse != 0);
     case 16: return dispatch<16>(a, inverse != 0);
     case 32: return dispatch<32>(a, inverse != 0);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Gradients of the forward spline on raw + bias: x [n, d], raw
+// [n, d·(3k-1)], g_out [n, d], g_logdet [n] -> g_x [n, d], g_raw
+// [n, d·(3k-1)]; contiguous float32 on `device`, bias [3k-1] float32 or
+// null (it gets no gradient). Returns the CUDA error code of the launch.
+extern "C" int pf_rqs_grad_launch(const void* x, const void* raw,
+                                  const void* bias, const void* g_out,
+                                  const void* g_logdet, void* g_x,
+                                  void* g_raw, int n, int d, int k,
+                                  float tail_bound, int device,
+                                  void* stream) {
+  if (n <= 0 || d <= 0 || device < 0 || device >= kMaxDevices) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const float* xf = static_cast<const float*>(x);
+  const float* rf = static_cast<const float*>(raw);
+  const float* bf = static_cast<const float*>(bias);
+  const float* go = static_cast<const float*>(g_out);
+  const float* gl = static_cast<const float*>(g_logdet);
+  float* gx = static_cast<float*>(g_x);
+  float* gr = static_cast<float*>(g_raw);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (k) {
+    case 4: return dispatch_grad<4>(xf, rf, bf, go, gl, gx, gr, n, d,
+                                    tail_bound, st);
+    case 8: return dispatch_grad<8>(xf, rf, bf, go, gl, gx, gr, n, d,
+                                    tail_bound, st);
+    case 16: return dispatch_grad<16>(xf, rf, bf, go, gl, gx, gr, n, d,
+                                      tail_bound, st);
+    case 32: return dispatch_grad<32>(xf, rf, bf, go, gl, gx, gr, n, d,
+                                      tail_bound, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,9 +6,10 @@ contexts; score = Mahalanobis distance, reported as a percentile against
 the validation distribution; the verdict aggregates OOD percentile,
 railing fraction, and data-quality warnings into HIGH/MEDIUM/LOW.
 
-A numpy copy of the scoring half of posteriflow_tpu/inference/ood.py; the
-statistics are fitted by the JAX package and shipped in each release's
-ood_stats.npz.
+A numpy copy of posteriflow_tpu/inference/ood.py. The JAX package fits
+the statistics with sklearn's LedoitWolf; `fit_context_stats` computes the
+same estimate in numpy and scipy (the card's machine has no sklearn), so a
+release the port trains ships its own ood_stats.npz.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+from scipy import linalg
 
 
 @dataclasses.dataclass
@@ -25,10 +27,51 @@ class ContextStats:
     precision: np.ndarray       # [C, C] shrunk inverse covariance
     val_dists: np.ndarray       # sorted Mahalanobis distances of val set
 
+    def save(self, path):
+        np.savez(path, mean=self.mean, precision=self.precision,
+                 val_dists=self.val_dists)
+
     @classmethod
     def load(cls, path):
         d = np.load(path)
         return cls(d["mean"], d["precision"], d["val_dists"])
+
+
+def ledoit_wolf_shrinkage(xc: np.ndarray) -> float:
+    """The Ledoit-Wolf shrinkage of centred data xc [N, C], as
+    sklearn.covariance.ledoit_wolf_shrinkage(xc, assume_centered=True)
+    computes it."""
+    n, c = xc.shape
+    x2 = xc ** 2
+    emp_cov_trace = np.sum(x2, axis=0) / n
+    mu = np.sum(emp_cov_trace) / c
+    beta_ = np.sum(x2.T @ x2)
+    delta_ = np.sum((xc.T @ xc) ** 2) / n ** 2
+    beta = 1.0 / (c * n) * (beta_ / n - delta_)
+    delta = (delta_ - 2.0 * mu * emp_cov_trace.sum() + c * mu ** 2) / c
+    beta = min(beta, delta)
+    return 0.0 if beta == 0 else beta / delta
+
+
+def fit_context_stats(contexts: np.ndarray) -> ContextStats:
+    """contexts [N, C] from validation events -> the mean, the precision of
+    the Ledoit-Wolf shrunk covariance (sklearn's LedoitWolf().fit, then
+    scipy.linalg.pinvh) and the sorted Mahalanobis distances of the
+    contexts themselves (reference: ood.py:27-59)."""
+    x = np.asarray(contexts, dtype=np.float64)
+    mean = x.mean(axis=0)
+    xc = x - mean
+    c = x.shape[1]
+    if c == 1:
+        cov = np.atleast_2d((xc ** 2).mean())
+    else:
+        shrinkage = ledoit_wolf_shrinkage(xc)
+        emp_cov = xc.T @ xc / x.shape[0]
+        cov = (1.0 - shrinkage) * emp_cov
+        cov.flat[::c + 1] += shrinkage * np.trace(emp_cov) / c
+    precision = linalg.pinvh(cov, check_finite=False)
+    d = _mahalanobis(x, mean, precision)
+    return ContextStats(mean, precision, np.sort(d))
 
 
 def _mahalanobis(x, mean, precision):

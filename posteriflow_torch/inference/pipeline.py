@@ -27,7 +27,8 @@ from posteriflow_torch.inference.preprocessing import (PreparedData,
                                                        prepare_simulated)
 from posteriflow_torch.inference.result import PosteriorResult
 from posteriflow_torch.models.npe import LeanNPE, NPEConfig
-from posteriflow_torch.train.checkpoints import load_release
+from posteriflow_torch.train.checkpoints import (load_checkpoint_model,
+                                                 load_release)
 
 
 def _sync(device: torch.device):
@@ -52,14 +53,22 @@ class InferenceEngine:
         self.bias_map = bias_map
 
     @classmethod
-    def from_checkpoint(cls, release_dir, device="cuda"):
-        """A release directory (params.msgpack + meta.json, optional
-        ood_stats.npz and twin_grid.json) -> engine on `device`."""
-        release_dir = Path(release_dir)
-        state_dict, cfg, _meta = load_release(release_dir)
-        ood_path = release_dir / "ood_stats.npz"
+    def from_checkpoint(cls, ckpt_dir, name: str = "best", device="cuda"):
+        """-> engine on `device` from a release directory (params.msgpack +
+        meta.json), or from the training checkpoint `name` under a
+        CheckpointManager root (e.g. <outdir>/ckpt). Either directory may
+        hold ood_stats.npz and twin_grid.json. FileNotFoundError if it
+        holds neither."""
+        ckpt_dir = Path(ckpt_dir)
+        if (ckpt_dir / "params.msgpack").exists():
+            state_dict, cfg, _meta = load_release(ckpt_dir)
+        else:
+            state_dict, train_cfg, _meta = load_checkpoint_model(ckpt_dir,
+                                                                 name)
+            cfg = train_cfg.npe
+        ood_path = ckpt_dir / "ood_stats.npz"
         stats = ContextStats.load(ood_path) if ood_path.exists() else None
-        bias_map = (load_bias_map(release_dir / "twin_grid.json")
+        bias_map = (load_bias_map(ckpt_dir / "twin_grid.json")
                     or load_bias_map())
         return cls(state_dict, cfg, ood_stats=stats, bias_map=bias_map,
                    device=device)
@@ -104,7 +113,7 @@ def load_model(release_dir, device="cuda") -> InferenceEngine:
     key = f"{Path(release_dir).resolve()}::{torch.device(device)}"
     if key not in _ENGINE_CACHE:
         _ENGINE_CACHE[key] = InferenceEngine.from_checkpoint(release_dir,
-                                                             device)
+                                                             device=device)
     return _ENGINE_CACHE[key]
 
 

@@ -149,3 +149,22 @@ def rqs_inverse(y: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
     ld = torch.where(inside, -torch.log(torch.clamp(dydx, min=1e-30)),
                      torch.zeros_like(dydx))
     return x, _sum_in_order(ld)
+
+
+def rqs_forward_vjp(x: torch.Tensor, raw_params: torch.Tensor,
+                    g_out: torch.Tensor, g_logdet: torch.Tensor,
+                    num_bins: int, tail_bound: float = 5.0,
+                    bias: torch.Tensor | None = None):
+    """The vector-Jacobian product of rqs_forward on raw_params + bias:
+    (g_x [..., D], g_raw [..., D, 3K-1]) for the upstream gradients g_out
+    [..., D] and g_logdet [...], by autograd through the plain version.
+    `bias` is a constant and gets no gradient. The oracle of the CUDA
+    backward kernel (csrc/rqs.cu rqs_grad)."""
+    with torch.enable_grad():
+        x_ = x.detach().requires_grad_(True)
+        raw_ = raw_params.detach().requires_grad_(True)
+        u = raw_ if bias is None else raw_ + bias.detach()
+        out, logdet = rqs_forward(x_, u, num_bins, tail_bound)
+        g_x, g_raw = torch.autograd.grad((out, logdet), (x_, raw_),
+                                         (g_out, g_logdet))
+    return g_x, g_raw

@@ -1,16 +1,19 @@
-"""The RQS kernel of csrc/rqs.cu: build with nvcc, bind with ctypes, launch.
+"""The RQS kernels of csrc/rqs.cu: build with nvcc, bind with ctypes, launch.
 
 `rqs_forward` / `rqs_inverse` take the signature of ops/rqs.py plus an
 optional `bias` [3K-1] added to the raw parameters, and choose by the
 tensor's device: a CPU tensor goes through the plain PyTorch version on
 raw + bias, a CUDA tensor through the kernel, which adds the bias as it
-reads raw (or an exception; there is no fallback). The kernel has no
-backward yet: on CUDA inputs that require grad, with grad enabled, the
-wrapper raises rather than return outputs that autograd cannot see through.
-The kernel replaces the
-TPU kernel posteriflow_tpu/ops/pallas_rqs.py:_pallas_rqs; csrc/rqs.cu says
-what bounds it and how it is laid out, and `tile_plan` below sizes its ring
-of row tiles.
+reads raw (or an exception; there is no fallback). The forward direction is
+differentiable on the card: under grad it runs as `RqsForwardFn`, whose
+backward is the kernel `rqs_grad` (d/dx and d/draw; the bias is a constant
+and may not require grad). The inverse has no backward, as in the JAX
+package: on CUDA inputs that require grad, with grad enabled, it raises
+rather than return outputs that autograd cannot see through. The forward
+and inverse kernel replaces the TPU kernel
+posteriflow_tpu/ops/pallas_rqs.py:_pallas_rqs; csrc/rqs.cu says what bounds
+each kernel and how it is laid out, and `tile_plan` below sizes the
+forward's ring of row tiles.
 
 The shared library is compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -145,21 +148,26 @@ _PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 _INSTANCE = re.compile(r"rqs_tileILi(\d+)ELb([01])ELb([01])E")
+_GRAD_INSTANCE = re.compile(r"rqs_gradILi(\d+)ELb([01])E")
 
 
-def ptxas_instances(log: str) -> list:
-    """What `-Xptxas -v` says of each rqs_tile<K, INVERSE, BIAS> instance:
-    [{"k", "inverse", "bias", "registers", "stack", "spill_stores",
-    "spill_loads"}, ...] in the order ptxas compiled them."""
+def ptxas_instances(log: str, kernel: str = "rqs_tile") -> list:
+    """What `-Xptxas -v` says of each instance of `kernel`:
+    rqs_tile<K, INVERSE, BIAS> gives [{"k", "inverse", "bias", "registers",
+    "stack", "spill_stores", "spill_loads"}, ...], rqs_grad<K, BIAS> the
+    same without "inverse", in the order ptxas compiled them."""
+    pattern = {"rqs_tile": _INSTANCE, "rqs_grad": _GRAD_INSTANCE}[kernel]
     found, cur = [], None
     for line in log.splitlines():
         m = _PTXAS_ENTRY.search(line)
         if m:
-            inst = _INSTANCE.search(m.group(1))
+            inst = pattern.search(m.group(1))
             cur = None
             if inst:
-                cur = {"k": int(inst.group(1)), "inverse": inst.group(2) == "1",
-                       "bias": inst.group(3) == "1"}
+                cur = {"k": int(inst.group(1)),
+                       "bias": inst.group(inst.lastindex) == "1"}
+                if kernel == "rqs_tile":
+                    cur["inverse"] = inst.group(2) == "1"
                 found.append(cur)
             continue
         if cur is None:
@@ -182,6 +190,7 @@ class RqsKernel:
 
     def __init__(self):
         self._fn = None
+        self._lib = None
         self._sm_count = {}
         self.launches = 0
         self.build_seconds: Optional[float] = None   # None: library cached
@@ -208,7 +217,8 @@ class RqsKernel:
             os.replace(tmp, so)
             self.build_seconds = time.perf_counter() - t0
         self.build_log = log.read_text() if log.exists() else ""
-        fn = ctypes.CDLL(str(so)).pf_rqs_launch
+        self._lib = ctypes.CDLL(str(so))
+        fn = self._lib.pf_rqs_launch
         fn.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -216,6 +226,11 @@ class RqsKernel:
         fn.restype = ctypes.c_int
         self._fn = fn
         return fn
+
+    def library(self) -> ctypes.CDLL:
+        """The loaded library (built at first use)."""
+        self.load()
+        return self._lib
 
     def plan(self, n: int, d: int, k: int, device: torch.device) -> TilePlan:
         """tile_plan for the card `device` (its SM count read once)."""
@@ -231,36 +246,10 @@ class RqsKernel:
         """x [N, D] and raw [N, D·(3K-1)] 16-B aligned, bias [3K-1] or None:
         contiguous float32 on one CUDA device -> (out [N, D], logdet [N])
         of the spline on raw + bias, on PyTorch's current stream."""
-        if x.device.type != "cuda" or raw.device != x.device:
-            raise ValueError(f"rqs kernel needs x and raw on one CUDA device, "
-                             f"got {x.device} and {raw.device}")
-        if x.dtype != torch.float32 or raw.dtype != torch.float32:
-            raise TypeError(f"rqs kernel takes float32, got {x.dtype} and "
-                            f"{raw.dtype}")
-        if num_bins not in SUPPORTED_BINS:
-            raise ValueError(f"rqs kernel is built for K in {SUPPORTED_BINS}, "
-                             f"got {num_bins}")
-        if x.dim() != 2:
-            raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
-        n, d = x.shape
-        n_raw = 3 * num_bins - 1
-        if tuple(raw.shape) != (n, d * n_raw):
-            raise ValueError(f"raw must be [{n}, {d * n_raw}], "
-                             f"got {tuple(raw.shape)}")
-        if not (x.is_contiguous() and raw.is_contiguous()):
-            raise ValueError("rqs kernel needs contiguous x and raw")
+        n, d = _check_spline_args(x, raw, num_bins, bias)
         if raw.data_ptr() % 16 != 0 or x.data_ptr() % 16 != 0:
             raise ValueError("rqs kernel needs x and raw at 16-byte aligned "
                              "addresses (its tiles are bulk copies)")
-        if bias is not None:
-            if bias.device != x.device or bias.dtype != torch.float32:
-                raise ValueError(f"bias must be float32 on {x.device}, got "
-                                 f"{bias.dtype} on {bias.device}")
-            if tuple(bias.shape) != (n_raw,) or not bias.is_contiguous():
-                raise ValueError(f"bias must be a contiguous [{n_raw}], got "
-                                 f"{tuple(bias.shape)}")
-        if n >= 2 ** 31 - THREADS:
-            raise ValueError(f"too many rows for the kernel: {n}")
         out = torch.empty_like(x)
         logdet = torch.empty(n, dtype=torch.float32, device=x.device)
         if n == 0:
@@ -283,6 +272,129 @@ class RqsKernel:
 KERNEL = RqsKernel()
 
 
+def _check_spline_args(x: torch.Tensor, raw: torch.Tensor, num_bins: int,
+                       bias: Optional[torch.Tensor]):
+    """The checks both launchers share: x [N, D] and raw [N, D·(3K-1)]
+    contiguous float32 on one CUDA device, K built, bias a contiguous
+    float32 [3K-1] there or None. Returns (N, D)."""
+    if x.device.type != "cuda" or raw.device != x.device:
+        raise ValueError(f"rqs kernel needs x and raw on one CUDA device, "
+                         f"got {x.device} and {raw.device}")
+    if x.dtype != torch.float32 or raw.dtype != torch.float32:
+        raise TypeError(f"rqs kernel takes float32, got {x.dtype} and "
+                        f"{raw.dtype}")
+    if num_bins not in SUPPORTED_BINS:
+        raise ValueError(f"rqs kernel is built for K in {SUPPORTED_BINS}, "
+                         f"got {num_bins}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
+    n, d = x.shape
+    n_raw = 3 * num_bins - 1
+    if tuple(raw.shape) != (n, d * n_raw):
+        raise ValueError(f"raw must be [{n}, {d * n_raw}], "
+                         f"got {tuple(raw.shape)}")
+    if not (x.is_contiguous() and raw.is_contiguous()):
+        raise ValueError("rqs kernel needs contiguous x and raw")
+    if bias is not None:
+        if bias.device != x.device or bias.dtype != torch.float32:
+            raise ValueError(f"bias must be float32 on {x.device}, got "
+                             f"{bias.dtype} on {bias.device}")
+        if tuple(bias.shape) != (n_raw,) or not bias.is_contiguous():
+            raise ValueError(f"bias must be a contiguous [{n_raw}], got "
+                             f"{tuple(bias.shape)}")
+    if n >= 2 ** 31 - THREADS:
+        raise ValueError(f"too many rows for the kernel: {n}")
+    return n, d
+
+
+class RqsGradKernel:
+    """The backward kernel rqs_grad<K, BIAS> of the same library, and its
+    launch count (`launches`: one for each launch, nowhere else)."""
+
+    def __init__(self, forward: RqsKernel):
+        self._forward = forward
+        self._fn = None
+        self.launches = 0
+
+    def _bind(self):
+        if self._fn is None:
+            fn = self._forward.library().pf_rqs_grad_launch
+            fn.argtypes = [ctypes.c_void_p] * 7 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, x: torch.Tensor, raw: torch.Tensor,
+               g_out: torch.Tensor, g_logdet: torch.Tensor, num_bins: int,
+               tail_bound: float, bias: Optional[torch.Tensor] = None):
+        """x [N, D], raw [N, D·(3K-1)], g_out [N, D], g_logdet [N]:
+        contiguous float32 on one CUDA device, bias [3K-1] or None ->
+        (g_x [N, D], g_raw [N, D·(3K-1)]) of the forward spline on
+        raw + bias, on PyTorch's current stream."""
+        n, d = _check_spline_args(x, raw, num_bins, bias)
+        for name, t, shape in (("g_out", g_out, (n, d)),
+                               ("g_logdet", g_logdet, (n,))):
+            if (t.device != x.device or t.dtype != torch.float32
+                    or tuple(t.shape) != shape or not t.is_contiguous()):
+                raise ValueError(f"{name} must be a contiguous float32 "
+                                 f"{list(shape)} on {x.device}, got "
+                                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        g_x = torch.empty_like(x)
+        g_raw = torch.empty_like(raw)
+        if n == 0:
+            return g_x, g_raw
+        fn = self._bind()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), raw.data_ptr(),
+                 None if bias is None else bias.data_ptr(), g_out.data_ptr(),
+                 g_logdet.data_ptr(), g_x.data_ptr(), g_raw.data_ptr(), n, d,
+                 num_bins, float(tail_bound), x.device.index or 0, stream)
+        if err != 0:
+            raise RuntimeError(f"rqs grad kernel launch failed with CUDA "
+                               f"error {err}")
+        self.launches += 1
+        return g_x, g_raw
+
+
+GRAD_KERNEL = RqsGradKernel(KERNEL)
+
+
+class RqsForwardFn(torch.autograd.Function):
+    """The forward spline kernel with the backward kernel as its gradient:
+    x [N, D], raw [N, D·(3K-1)] (both 16-B aligned) and a constant bias ->
+    (out [N, D], logdet [N]). Saves x and the bias-less raw. The backward
+    kernel's outputs carry no graph, so its backward raises under
+    create_graph rather than let a second derivative lose its terms."""
+
+    @staticmethod
+    def forward(ctx, x, raw, num_bins, tail_bound, bias):
+        out, logdet = KERNEL.launch(x, raw, num_bins, tail_bound, False,
+                                    bias)
+        ctx.save_for_backward(x, raw, bias)
+        ctx.spline = (num_bins, tail_bound)
+        return out, logdet
+
+    @staticmethod
+    def backward(ctx, g_out, g_logdet):
+        # grad mode is on here only under create_graph. once_differentiable
+        # would not do: it raises only where g_out or g_logdet require grad,
+        # and a second derivative in x reaches this node through x alone.
+        if torch.is_grad_enabled():
+            raise RuntimeError("the CUDA RQS backward kernel has no "
+                               "derivative of its own: take the gradient "
+                               "without create_graph")
+        x, raw, bias = ctx.saved_tensors
+        g_out = (torch.zeros_like(x) if g_out is None
+                 else g_out.float().contiguous())
+        g_logdet = (x.new_zeros(x.shape[0]) if g_logdet is None
+                    else g_logdet.float().contiguous())
+        g_x, g_raw = GRAD_KERNEL.launch(x, raw, g_out, g_logdet, *ctx.spline,
+                                        bias)
+        return g_x, g_raw, None, None, None
+
+
 def _rqs(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
          tail_bound: float, inverse: bool, bias: Optional[torch.Tensor]):
     if x.device.type == "cpu":
@@ -292,13 +404,18 @@ def _rqs(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
         return fn(x, raw_params, num_bins, tail_bound)
     if x.device.type != "cuda":
         raise ValueError(f"no RQS implementation for device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, raw_params, bias)):
+    differentiate = torch.is_grad_enabled() and (
+        x.requires_grad or raw_params.requires_grad)
+    if torch.is_grad_enabled() and (
+            (inverse and differentiate)
+            or (bias is not None and bias.requires_grad)):
         # the kernel writes its outputs through raw pointers, so autograd
         # would see no graph and a loss would lose these gradients silently
-        raise RuntimeError("the CUDA RQS kernel has no backward yet: call it "
-                           "under torch.no_grad(), or on inputs that do not "
-                           "require grad")
+        raise RuntimeError("the CUDA RQS kernel has no backward for the "
+                           + ("inverse" if inverse else "derivative bias, a "
+                              "constant")
+                           + ": call it under torch.no_grad(), or on inputs "
+                             "that do not require grad")
     batch, d = x.shape[:-1], x.shape[-1]
     n_raw = 3 * num_bins - 1
     if tuple(raw_params.shape) != (*batch, d, n_raw):
@@ -308,8 +425,12 @@ def _rqs(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
     if x2.data_ptr() % 16 != 0:          # a view into x: copy its N·D floats
         x2 = x2.clone()
     raw2 = raw_params.reshape(x2.shape[0], d * n_raw).contiguous()
-    out, logdet = KERNEL.launch(x2, raw2, num_bins, tail_bound, inverse,
-                                bias)
+    if differentiate:
+        out, logdet = RqsForwardFn.apply(x2, raw2, num_bins, tail_bound,
+                                         bias)
+    else:
+        out, logdet = KERNEL.launch(x2, raw2, num_bins, tail_bound, inverse,
+                                    bias)
     return out.reshape(*batch, d), logdet.reshape(batch)
 
 
@@ -317,7 +438,7 @@ def rqs_forward(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
                 tail_bound: float = 5.0,
                 bias: Optional[torch.Tensor] = None):
     """ops.rqs.rqs_forward on raw_params + bias: the kernel on CUDA
-    tensors."""
+    tensors, differentiable in x and raw_params."""
     return _rqs(x, raw_params, num_bins, tail_bound, False, bias)
 
 
@@ -325,5 +446,5 @@ def rqs_inverse(y: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
                 tail_bound: float = 5.0,
                 bias: Optional[torch.Tensor] = None):
     """ops.rqs.rqs_inverse on raw_params + bias: the kernel on CUDA
-    tensors."""
+    tensors (no backward)."""
     return _rqs(y, raw_params, num_bins, tail_bound, True, bias)

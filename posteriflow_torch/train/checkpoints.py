@@ -1,22 +1,33 @@
-"""Load a released model (params.msgpack + meta.json) into the port.
+"""Checkpoints of the port: released models and training checkpoints.
 
-Port of the release loader of posteriflow_tpu/train/checkpoints.py
-(cfg_from_dict :51-57, load_release :100-110), without flax and msgpack:
-the weights are decoded by utils/msgpack_lite.py and the flax tree is
-carried into a torch state_dict by `flax_to_state_dict`.
+Port of posteriflow_tpu/train/checkpoints.py:32-118, without flax, msgpack
+and orbax:
+
+  - a release (params.msgpack + meta.json) is decoded by
+    utils/msgpack_lite.py and its flax tree carried into a torch state_dict
+    by `flax_to_state_dict` (`load_release`); `flax_view` goes back, leaf
+    by leaf, to the flax layout;
+  - a training checkpoint is `<root>/<name>/state.pt` (the model's
+    state_dict, the optimizer's moments and its step) beside `meta.json`
+    in the JAX package's schema (the whole TrainConfig, the epoch and the
+    metrics). Orbax's format is not read.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from posteriflow_torch.models.encoder import MultiHeadDotProductAttention
 from posteriflow_torch.models.npe import NPEConfig
+from posteriflow_torch.physics.simulator import sim_config_from_dict
 from posteriflow_torch.utils.msgpack_lite import unpackb
 
 _MHA_PROJ = ("query", "key", "value")
@@ -88,3 +99,139 @@ def load_release(release_dir) -> Tuple[Dict[str, torch.Tensor], NPEConfig,
     cfg = cfg_from_dict(meta["config"])
     tree = unpackb((release_dir / "params.msgpack").read_bytes())
     return flax_to_state_dict(tree), cfg, meta
+
+
+def flax_view(model: nn.Module, name: str, t: torch.Tensor) -> torch.Tensor:
+    """The parameter `name` of `model`, or a tensor of its shape such as its
+    gradient, viewed in its flax layout (the inverse of
+    `flax_to_state_dict` for one leaf): Dense kernels [in, out], Conv
+    kernels [k, in, out], attention q/k/v kernels [in, heads, hd] with
+    [heads, hd] biases, the attention output kernel [heads, hd, out]. A
+    view: writing to it writes `t`."""
+    mod_path, leaf = name.rsplit(".", 1)
+    mod = model.get_submodule(mod_path)
+    parent_path, _, child = mod_path.rpartition(".")
+    parent = model.get_submodule(parent_path)
+    if isinstance(mod, nn.Conv1d) and leaf == "weight":
+        return t.permute(2, 1, 0)
+    if not isinstance(mod, nn.Linear):
+        return t
+    if isinstance(parent, MultiHeadDotProductAttention):
+        h = parent.n_heads
+        if child in _MHA_PROJ:
+            return (t.T.view(t.shape[1], h, -1) if leaf == "weight"
+                    else t.view(h, -1))
+        if leaf == "weight":                     # the output projection
+            return t.T.view(h, -1, t.shape[0])
+        return t
+    return t.T if leaf == "weight" else t
+
+
+def _cfg_to_dict(cfg) -> dict:
+    """A TrainConfig -> nested dict of JSON types (tuples as lists)."""
+    def enc(x):
+        if dataclasses.is_dataclass(x):
+            return {f.name: enc(getattr(x, f.name))
+                    for f in dataclasses.fields(x)}
+        if isinstance(x, tuple):
+            return [enc(v) for v in x]
+        return x
+    return enc(cfg)
+
+
+def train_cfg_from_dict(d: dict):
+    """A saved train config (the `config` of a meta.json) -> TrainConfig,
+    with NPEConfig, SimConfig and PriorConfig rebuilt (JSON lists back to
+    tuples); keys the port does not know raise."""
+    from posteriflow_torch.train.trainer import TrainConfig  # imports us
+    rest = {k: v for k, v in d.items() if k not in ("npe", "sim")}
+    return TrainConfig(npe=cfg_from_dict(d), sim=sim_config_from_dict(d["sim"]),
+                       **rest)
+
+
+def _read_checkpoint(path: Path, device):
+    """-> (the saved dict of state.pt on `device`, TrainConfig, meta) of the
+    training checkpoint directory `path`."""
+    if not (path / "state.pt").is_file():
+        raise FileNotFoundError(f"no training checkpoint at {path} "
+                                f"(state.pt)")
+    meta = json.loads((path / "meta.json").read_text())
+    saved = torch.load(path / "state.pt", map_location=torch.device(device),
+                       weights_only=True)
+    return saved, train_cfg_from_dict(meta["config"]), meta
+
+
+def load_checkpoint_model(root, name: str):
+    """-> (model state_dict on the CPU, TrainConfig, meta) of the training
+    checkpoint <root>/<name>/, for serving: it writes nothing, builds no
+    optimizer and draws no random init. FileNotFoundError if there is no
+    such checkpoint."""
+    saved, cfg, meta = _read_checkpoint(Path(root) / name, "cpu")
+    return saved["model"], cfg, meta
+
+
+class CheckpointManager:
+    """Named checkpoints under one root: best / last / epoch_XXXX, each a
+    directory holding state.pt and meta.json."""
+
+    def __init__(self, root):
+        self.root = Path(root).resolve()
+        self.root.mkdir(parents=True, exist_ok=True)
+
+    def save(self, name: str, state, cfg, metrics: Optional[dict] = None,
+             epoch: int = 0):
+        """Write `state` (a trainer.TrainState) and its meta.json under
+        <root>/<name>/, replacing what was there."""
+        path = self.root / name
+        tmp = self.root / f".{name}.tmp"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
+        torch.save({"model": state.model.state_dict(),
+                    "opt": state.opt.state_dict(), "step": state.step},
+                   tmp / "state.pt")
+        meta = {"config": _cfg_to_dict(cfg), "epoch": epoch,
+                "metrics": _json_metrics(metrics or {})}
+        (tmp / "meta.json").write_text(json.dumps(meta, indent=2))
+        if path.exists():
+            shutil.rmtree(path)
+        tmp.rename(path)
+
+    def load_meta(self, name: str) -> dict:
+        return json.loads((self.root / name / "meta.json").read_text())
+
+    def restore(self, name: str, device="cuda"):
+        """-> (state, cfg, meta): the model rebuilt from the SAVED config,
+        its weights, the optimizer's moments and step, on `device`."""
+        from posteriflow_torch.train.trainer import init_state
+        saved, cfg, meta = _read_checkpoint(self.root / name, device)
+        state = init_state(cfg, device=device)
+        state.model.load_state_dict(saved["model"], strict=True)
+        state.opt.load_state_dict(saved["opt"])
+        return state, cfg, meta
+
+    def fine_tune_restore(self, name: str, new_cfg, device="cuda"):
+        """-> (state, meta): the checkpoint's weights under a FRESH
+        optimizer and schedule for `new_cfg`."""
+        from posteriflow_torch.train.trainer import Optimizer
+        state, _, meta = self.restore(name, device=device)
+        state.cfg = new_cfg
+        state.opt = Optimizer(state.model, new_cfg)
+        return state, meta
+
+
+def _json_metrics(metrics: dict) -> dict:
+    """Scalars and arrays of tensors and numpy -> JSON floats and lists."""
+    def conv(v):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        if isinstance(v, np.ndarray):
+            return v.tolist()
+        if isinstance(v, np.generic):
+            return v.item()
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [conv(x) for x in v]
+        return v
+    return conv(metrics)

@@ -1,10 +1,12 @@
 """The port runs on a machine that has PyTorch, numpy and scipy but none of
-the JAX stack, msgpack, pyyaml or ninja.
+the JAX stack, msgpack, pyyaml, scikit-learn or ninja.
 
 A subprocess blocks those imports with a sys.meta_path finder, imports
-every module of posteriflow_torch, loads the flagship release on the CPU,
-serves one request on raw strain, simulates a batch with the flagship's
-SimConfig and serves one request on an injection. chip_smoke.py without a GPU exits non-zero, fast,
+every module of posteriflow_torch (the trainer, its tools and the OOD
+fit included), loads the flagship release on the CPU, serves one request
+on raw strain, simulates a batch with the flagship's SimConfig, serves one
+request on an injection and takes one train step of the flagship's
+TrainConfig at batch 2. chip_smoke.py without a GPU exits non-zero, fast,
 with no result line. A scan of the sources checks what they import.
 """
 
@@ -19,7 +21,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "posteriflow_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "yaml",
-           "ninja", "posteriflow_tpu")
+           "ninja", "sklearn", "posteriflow_tpu")
 
 _CHILD = r"""
 import importlib, importlib.abc, json, pkgutil, sys
@@ -65,6 +67,17 @@ inj = infer(eng, inject=[dict(zip(PARAM_NAMES_PRECESSING,
                                   [30.0, 25.0, 400.0, 1.0, 0.2, 0.5, 0.3,
                                    1.0, 0.0, 0.4, 0.3, 1.0, 2.0, 0.5,
                                    1.0]))], n_samples=32, seed=2)
+import dataclasses
+from posteriflow_torch.train.loop import _merge_params
+from posteriflow_torch.train.checkpoints import load_release
+from posteriflow_torch.train.trainer import init_state, train_step
+from posteriflow_torch.utils.config import load_config
+cfg = dataclasses.replace(load_config("model_release/npe_r7_best/meta.json"),
+                          batch_size=2)
+state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+state.model.load_state_dict(_merge_params(
+    state.model.state_dict(), load_release("model_release/npe_r7_best")[0])[0])
+step = train_step(state, batch)
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                   "finite": bool(np.isfinite(res.samples).all()
@@ -74,6 +87,7 @@ print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                           bool(torch.isfinite(batch.strain).all())],
                   "inject": [list(inj.samples.shape),
                              bool(np.isfinite(inj.samples).all())],
+                  "train": [bool(torch.isfinite(step["nll"])), state.step],
                   "loaded": loaded}))
 """
 
@@ -101,12 +115,15 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
         "physics.waveforms.taylorf2", "physics.waveforms.imr",
         "physics.waveforms.phenomd", "physics.waveforms.tidal",
         "physics.waveforms.precession", "prior", "utils.precision",
-        "tools.bench")}
+        "tools.bench", "tools.bench_train", "tools.train_npe",
+        "train.trainer", "train.diagnostics", "train.gates", "train.loop",
+        "utils.config")}
     assert expected <= set(out["modules"])
     assert out["shape"] == [64, 15] and out["finite"]
     assert out["verdict"] in ("HIGH", "MEDIUM", "LOW") and out["gate"]
     assert out["sim"] == [[2, 3, 16384], True]
     assert out["inject"] == [[32, 15], True]
+    assert out["train"] == [True, 1]
     assert out["loaded"] == []
 
 
