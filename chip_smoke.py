@@ -3,7 +3,7 @@
 release on one NVIDIA GPU through the hand-written CUDA RQS kernels
 (csrc/rqs.cu: rqs_tile, a TMA bulk-copy ring of row tiles, one thread per
 spline, the conditioner's derivative bias added in the kernel; rqs_grad,
-its backward, one thread per spline over a tile of raw in shared memory).
+its backward, K lanes a spline).
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -50,8 +50,11 @@ Phases (any failure exits non-zero and prints no result line):
   (l) the backward kernel rqs_grad against ops/rqs.py rqs_forward_vjp at
       K in {4, 8, 16, 32} and N in {640, 257, 131072} (x on knots, at ±B,
       in the tails; g_logdet zero and not), within 1e-5 of the largest
-      entry plus 1e-6; its registers and spills; its time at 640 (the
-      training shape) and 131072 rows beside the plain VJP and its bounds.
+      entry plus 1e-6; its registers and spills (none at K = 16); its time
+      at 640 (the training shape) and 131072 rows beside the plain VJP and
+      its bounds, and at 640 rows beside the launch floor (the device time
+      of a one-block PyTorch kernel); the wrapper's host time a call; the
+      forward kernel's time at the training shape beside its bound.
   (m) training at full width, TrainConfig from the release's meta.json
       (batch 128, bf16 matmuls, no noise bank), weights from the release:
       one fixed CPU-simulated batch of 16 events in float32, loss,
@@ -110,6 +113,11 @@ N_REF_DRAWS = 256
 GRAD_REL, GRAD_ABS = 1e-5, 1e-6
 TRAIN_ROWS = TRAIN_BATCH * 5                      # B·S rows a flow layer
 GRAD_ROWS = (TRAIN_ROWS, 257, N_ROWS)
+# the backward kernel's wrapper at TRAIN_ROWS with the earlier design (one
+# thread a spline; its checks made twice, the device set on every launch):
+# CUDA events over back-to-back calls, NVIDIA H100 80GB HBM3, 700 W
+EARLIER_GRAD_CALL_US = (33.8, 60.6)
+HOST_REPS = 200
 # the train step in float32, each gradient leaf relative to its largest
 # entry after TRAIN_GRAD_ABS of the largest entry of any leaf (leaves whose
 # gradient is zero but for rounding, such as attention key biases), worst
@@ -777,13 +785,13 @@ def rqs_grad_bytes(n: int, d: int, k: int) -> int:
 
 
 def rqs_grad_ops(n: int, d: int, k: int) -> int:
-    """f32 operations of one backward call, counted per (row, dim) from
-    csrc/rqs.cu rqs_grad: the forward's recomputation (rqs_ops: ~24K + 56),
-    the two softmaxes formed again for the gradient (~4K each), the
-    gradient over the 2K bin sizes (~10 each: the cumsum transpose, the
-    softmax Jacobian and its dot product), the K-1 derivative entries and
-    ~80 for the reverse pass through the map."""
-    return n * d * (24 * k + 56 + 8 * k + 20 * k + k + 80)
+    """f32 operations of one backward call, counted per (row, dim) spline
+    once (not the copies its K lanes repeat): the forward's recomputation
+    (rqs_ops: ~24K + 56), the gradient over the 2K softmax entries (~7
+    each: the entry's upstream term, the Jacobian's dot product and the
+    difference), the K-1 softplus' (~4 each) and ~80 for the reverse pass
+    through the map."""
+    return n * d * (24 * k + 56 + 14 * k + 4 * k + 80)
 
 
 def phase_grad_kernel(torch, plain, rqs_cuda, card):
@@ -832,6 +840,8 @@ def phase_grad_kernel(torch, plain, rqs_cuda, card):
     for n in (TRAIN_ROWS, N_ROWS):
         x, raw, g_out, g_ld, bias = grad_inputs(torch, plain, n, K_BINS,
                                                 seed=7)
+        if n == TRAIN_ROWS:
+            train_inputs = (x, raw, g_out, g_ld, bias)
         raw2 = raw.reshape(n, -1)
         k_ms = cuda_time_ms(lambda: rqs_cuda.GRAD_KERNEL.launch(
             x, raw2, g_out, g_ld, K_BINS, TAIL, bias), reps=50)
@@ -862,15 +872,109 @@ def phase_grad_kernel(torch, plain, rqs_cuda, card):
               f"3.35 TB/s = {by_bytes * 1e6:.2f} us, {nops} f32 ops at 67 "
               f"TFLOP/s = {by_ops * 1e6:.2f} us), "
               f"{bound_ms / times[n]['ms']:.1%} of its bound")
+    floor_ms = kernel_device_ms(torch, lambda: torch.zeros(1, device=DEVICE),
+                                "")
+    dev_txt = ("not measured" if floor_ms is None
+               else f"{floor_ms * 1e3:.2f} us")
+    print(f"(l) launch floor [{card}]: a one-block PyTorch kernel "
+          f"(torch.zeros(1)) takes {dev_txt} of device time (profiler); "
+          f"rqs_grad at N={TRAIN_ROWS} {times[TRAIN_ROWS]['ms'] * 1e3:.2f} "
+          f"us, its bound {times[TRAIN_ROWS]['bound_ms'] * 1e3:.2f} us "
+          f"(bytes)")
+    host = grad_host_us(torch, rqs_cuda, *train_inputs)
+    print(f"(l) host time a call at N={TRAIN_ROWS} [{card}], the host clock "
+          f"over {HOST_REPS} calls with no synchronisation between them: "
+          f"GRAD_KERNEL.launch {host['launch']:.1f} us, "
+          f"RqsForwardFn.backward {host['node']:.1f} us, a whole backward "
+          f"of one RqsForwardFn through autograd's engine "
+          f"{host['backward']:.1f} us "
+          f"(the earlier design's wrapper: "
+          f"{EARLIER_GRAD_CALL_US[0]}-{EARLIER_GRAD_CALL_US[1]} us a call)")
+    fwd = forward_at_train_shape(torch, plain, rqs_cuda, *train_inputs)
+    print(f"(l) rqs_tile<{K_BINS}, forward, bias> N={TRAIN_ROWS} D={D_TR} "
+          f"[{card}]: device time a launch "
+          + ("not measured" if fwd["ms"] is None
+             else f"{fwd['ms'] * 1e3:.2f} us")
+          + f" (profiler), {fwd['events_ms'] * 1e3:.2f} us by CUDA events "
+          f"over back-to-back launches, plain {fwd['plain_ms'] * 1e3:.1f} us; "
+          f"bound {fwd['bound_ms'] * 1e3:.2f} us "
+          f"({fwd['bound_by']}: {rqs_bytes(TRAIN_ROWS, D_TR, K_BINS)} B)")
     return {"times": times, "max_abs_err": worst["abs"],
-            "max_rel_err": worst["rel"]}
+            "max_rel_err": worst["rel"], "launch_floor_ms": floor_ms,
+            "host_us": host, "forward_train": fwd}
+
+
+def grad_host_us(torch, rqs_cuda, x, raw, g_out, g_ld, bias) -> dict:
+    """Host µs a call of the backward kernel's wrapper: the host clock over
+    HOST_REPS calls with no synchronisation between them (the device takes
+    less than the host per call, so nothing waits), after a warm-up call:
+    GRAD_KERNEL.launch; RqsForwardFn.backward called directly with the
+    saved tensors (its upstream checks and the unchecked launch); and a
+    whole backward through autograd's engine of one RqsForwardFn
+    (torch.autograd.backward of (out, logdet) with g_out and g_logdet; only
+    the backward is on the clock)."""
+    from types import SimpleNamespace
+    raw2 = raw.reshape(x.shape[0], -1)
+    xg = x.clone().requires_grad_(True)
+    rg = raw.clone().requires_grad_(True)
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_REPS):
+            fn()
+        us = (time.perf_counter() - t0) / HOST_REPS * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    out = {"launch": per_call(lambda: rqs_cuda.GRAD_KERNEL.launch(
+        x, raw2, g_out, g_ld, K_BINS, TAIL, bias))}
+    ctx = SimpleNamespace(saved_tensors=(x, raw2, bias),
+                          spline=(K_BINS, TAIL))
+    with torch.no_grad():
+        out["node"] = per_call(
+            lambda: rqs_cuda.RqsForwardFn.backward(ctx, g_out, g_ld))
+    total = 0.0
+    for i in range(HOST_REPS + 1):
+        y, ld = rqs_cuda.rqs_forward(xg, rg, K_BINS, TAIL, bias=bias)
+        t0 = time.perf_counter()
+        torch.autograd.backward((y, ld), (g_out, g_ld))
+        if i:                                   # the first call warms up
+            total += time.perf_counter() - t0
+        xg.grad = rg.grad = None
+    torch.cuda.synchronize()
+    out["backward"] = total / HOST_REPS * 1e6
+    return out
+
+
+def forward_at_train_shape(torch, plain, rqs_cuda, x, raw, g_out, g_ld,
+                           bias):
+    """rqs_tile<K, forward, bias> at the training shape: device time by the
+    profiler, CUDA events over back-to-back launches, the plain version's
+    time and the kernel's bound."""
+    raw2 = raw.reshape(x.shape[0], -1)
+
+    def fn():
+        return rqs_cuda.KERNEL.launch(x, raw2, K_BINS, TAIL, False,
+                                      bias=bias)
+    nbytes = rqs_bytes(TRAIN_ROWS, D_TR, K_BINS)
+    nops = rqs_ops(TRAIN_ROWS, D_TR, K_BINS)
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOPS
+    biased = raw + bias
+    return {"ms": kernel_device_ms(torch, fn, "rqs_tile"),
+            "events_ms": cuda_time_ms(fn, reps=50),
+            "plain_ms": cuda_time_ms(lambda: plain.rqs_forward(
+                x, biased, K_BINS, TAIL), reps=5),
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def kernel_device_ms(torch, fn, name: str, reps: int = 20):
     """Device time of one launch of the kernel `name` that fn() launches
-    (torch.profiler over `reps` calls; None without CUPTI). A small launch
-    is shorter than the host's time to issue it, which CUDA events over
-    back-to-back launches measure instead."""
+    ("": any kernel; torch.profiler over `reps` calls; None without
+    CUPTI). A small launch is shorter than the host's time to issue it,
+    which CUDA events over back-to-back launches measure instead."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1388,6 +1492,7 @@ def main() -> int:
         "no_bias_ms": bench["times"]["inverse no bias"][0],
         "forward_no_bias_ms": bench["times"]["forward no bias"][0],
         "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
+        f"rows_{TRAIN_ROWS}_forward_bias": grad["forward_train"],
         "library_ms": None,
     }, {
         "name": "rqs_grad<16, bias> (RQS spline backward, training)",
@@ -1409,6 +1514,8 @@ def main() -> int:
         "bound_ms": grad["times"][TRAIN_ROWS]["bound_ms"],
         "bound_by": grad["times"][TRAIN_ROWS]["bound_by"],
         f"rows_{N_ROWS}": grad["times"][N_ROWS],
+        "launch_floor_ms": grad["launch_floor_ms"],
+        "host_us_a_call": grad["host_us"],
         "library_ms": None,
     }]
     print(f"(e) done in {time.perf_counter() - t_start:.1f} s [{card}]; "

@@ -374,155 +374,95 @@ rqs_tile(const float* __restrict__ x, const float* __restrict__ raw,
 // [N, D] and g_logdet [N], g_x [N, D] and g_raw [N, D·(3K-1)]. The bias is
 // a constant (the conditioner's derivative init) and gets no gradient.
 //
-// Per spline, one thread: the knots, the bin and every value of the map are
-// recomputed by the forward's own device functions and expressions (built
-// with -fmad=false), so the bin is the forward's bin. Then reverse through
-// the RQ map as autograd takes clamp and where: the gradient passes through
-// clamp(theta, 0, 1) inclusive of the ends and through max(dydx, 1e-30)
-// where dydx >= 1e-30; in the tails g_x = g_out and g_raw = 0. It reaches
-// raw through the two knots of the bin on each axis (a knot j moves with
-// every bin size i < j, times 2B; the pinned ends take nothing), the
-// softmax Jacobian times (1 - 1e-3·K), and the sigmoid of the bin's two
-// interior derivatives (softplus' as torch takes it: 1 above 20).
+// Bound: it reads x, raw, g_out, g_logdet and writes g_x, g_raw: at the
+// training shape (N = 640, D = 7, K = 16) 1.74 MB, half a microsecond at
+// 3.35 TB/s. There the launch (about a microsecond for any kernel) and the
+// instructions each SM issues for its ~17 warps set the time: the design
+// spreads the 4,480 splines over every SM, keeps each lane's chain short
+// and takes the IEEE divisions (with their slow-path branches) only where
+// the forward's bits or autograd's clamp need them. At N = 131072 it moves
+// 357 MB, and instruction issue bounds it: the K lanes of a spline repeat
+// the left-to-right sums and the map, so a spline costs K/32 of a warp's
+// instructions where one thread a spline cost 1/32 of a longer chain
+// (times in PERF.md).
 //
-// Bound: at the training shape (N = 640, D = 7, K = 16) it reads x, raw,
-// g_out, g_logdet and writes g_x, g_raw: 1.74 MB, half a microsecond at
-// 3.35 TB/s, so the launch sets its time; at N = 131072 it moves 357 MB.
-// Design: a block of 64 threads stages its 64 splines' raw (12 KB at
-// K = 16) in shared memory with coalesced loads, all of a full tile's loads
-// issued before the first is used; each thread reads its spline at stride
-// 3K-1 (odd, so no bank conflicts), writes its g_raw over its own raw
-// there, and the block stores the tile with coalesced writes. Small blocks
-// spread the training shape's 4,480 splines over 70 SMs: a thread's work is
-// a long dependent chain (four K-way softmaxes with IEEE divisions, the
-// map and its reverse), so the time there is latency, not bytes.
-constexpr int kGradThreads = 64;
+// Design: K lanes a spline, 32/K splines a warp (K divides 32, so a group
+// never straddles warps), kGradThreads threads a block. Lane j holds raw[j]
+// (width), raw[K+j] (height) and, for j < K-1, raw[2K+j] (interior
+// derivative), each with its bias: three runs of K contiguous floats that a
+// warp loads and stores coalesced, with no shared memory.
+// - The forward's knots, bit for bit: the softmax's max by shuffle (exact in
+//   any order); each lane its own exp and IEEE division with the forward's
+//   expressions (softmax_exp, knots; built with -fmad=false); the sum of
+//   the exps and the knot cumsum left to right, as the forward takes them:
+//   each lane gathers the group's K values by independent shuffles and runs
+//   the same chain of adds. Lane j keeps knot j+1 (lane K-1 the pinned end
+//   B); the bin is the count of interior knots <= x, by a ballot over the
+//   group with the forward's comparison. So a point on a knot lands in the
+//   forward's bin.
+// - The bin's ends and derivatives come by shuffle from lanes idx-1 and
+//   idx, and every lane of the group runs the RQ map and its reverse on
+//   them (one short scalar chain, the same on every lane: no divergence).
+//   Only the bin must be the forward's; the map's values enter only the
+//   gradient, so its quotients other than theta are fast reciprocals, and
+//   log dydx is differentiated as 2 log s + log m - 2 log denom.
+// - The reverse, per lane, as autograd takes clamp and where: the gradient
+//   passes clamp(theta, 0, 1) inclusive of the ends and max(dydx, 1e-30)
+//   where dydx >= 1e-30; softplus' is 1 above 20; in the tails g_x = g_out
+//   and g_raw = 0. A knot i moves with every bin size j < i (times 2B; the
+//   pinned ends take nothing), so lane j's gradient on its softmax entry is
+//   scale·2B·((j < idx ? c_lo : 0) + (j <= idx ? c_hi : 0)), and lane j's
+//   raw gets p_j·(g_p_j - Σ p_i g_p_i). The bin's two derivative terms go
+//   to lanes idx-1 and idx.
+// Not in autograd's order: Σ p_i g_p_i is a butterfly over the group
+// (autograd goes through the division, the left-to-right sum, the exp and
+// the max), and the map's reverse is the log-derivative form above, so the
+// gradients differ from the plain VJP by rounding (held to 1e-5 of the
+// largest entry plus 1e-6).
+// All lanes stay alive to the end (a lane past the last spline computes
+// the last spline again and stores nothing), and every shuffle and the
+// ballot run on all 32 lanes of the warp.
+constexpr int kGradThreads = 128;
+constexpr unsigned kWarp = 0xffffffffu;
 
-// One spline's gradients: r holds its 3K-1 raw values and gets g_raw in
-// their place; returns g_x.
-template <int K, bool BIAS>
-__device__ __forceinline__ float spline_grad(float* r, const float* b,
-                                             float v, float g_y, float g_l,
-                                             float bound) {
-  constexpr int R = 3 * K - 1;
-  const float min_w = (float)kMinBinWidth;
-  const float scale_w = (float)(1.0 - kMinBinWidth * K);
-  const float min_h = (float)kMinBinHeight;
-  const float scale_h = (float)(1.0 - kMinBinHeight * K);
-  if (!(fabsf(v) <= bound)) {
+template <int K>
+__device__ __forceinline__ float group_max(float v) {
 #pragma unroll
-    for (int k = 0; k < R; ++k) r[k] = 0.f;
-    return g_y;
+  for (int off = K / 2; off > 0; off >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(kWarp, v, off, K));
   }
-  const float vs = fminf(fmaxf(v, -bound), bound);
+  return v;
+}
 
-  // the forward's knots, bin and derivatives
-  float kn[K + 1];
-  knots<K, BIAS>(r, b, min_w, scale_w, bound, kn);
-  int idx = 0;
+template <int K>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int k = 1; k < K; ++k) idx += (vs >= kn[k]) ? 1 : 0;
-  float x_lo = kn[0], x_hi = kn[1];
-#pragma unroll
-  for (int k = 1; k < K; ++k) {
-    if (idx == k) {
-      x_lo = kn[k];
-      x_hi = kn[k + 1];
-    }
+  for (int off = K / 2; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(kWarp, v, off, K);
   }
-  float y_lo, y_hi;
-  knot_pair<K, BIAS>(r + K, b + K, min_h, scale_h, bound, idx, y_lo, y_hi);
-  const int i_lo = 2 * K + (idx > 0 ? idx - 1 : 0);
-  const int i_hi = 2 * K + (idx < K - 1 ? idx : K - 2);
-  const float u_lo = raw_at<BIAS>(r, b, i_lo);
-  const float u_hi = raw_at<BIAS>(r, b, i_hi);
-  const float d_lo = idx == 0 ? 1.f : kMinDerivative + softplus(u_lo);
-  const float d_hi = idx == K - 1 ? 1.f : kMinDerivative + softplus(u_hi);
+  return v;
+}
 
-  // the forward's map
-  const float wb = x_hi - x_lo;
-  const float hb = y_hi - y_lo;
-  const float s = hb / wb;
-  const float dsum = d_hi + d_lo - 2.f * s;
-  const float theta_raw = (vs - x_lo) / wb;
-  const float theta = fminf(fmaxf(theta_raw, 0.f), 1.f);
-  const float t1m = 1.f - theta;
-  const float tt = theta * t1m;
-  const float denom = s + dsum * tt;
-  const float theta2 = theta * theta;
-  const float num = s * theta2 + d_lo * tt;
-  const float m = d_hi * theta2 + 2.f * s * tt + d_lo * (t1m * t1m);
-  const float dydx = s * s * m / (denom * denom);
-
-  // y = y_lo + hb·num/denom and log(max(dydx, 1e-30)), in reverse
-  const float g_dydx = dydx >= 1e-30f ? g_l / dydx : 0.f;
-  const float den2 = denom * denom;
-  const float g_num = g_y * hb / denom;
-  const float g_m = g_dydx * (s * s) / den2;
-  const float g_den = -g_y * hb * num / den2
-                      - g_dydx * 2.f * (s * s) * m / (den2 * denom);
-  float g_h = g_y * num / denom;
-  const float g_s = g_num * theta2 + g_den * (1.f - 2.f * tt)
-                    + g_dydx * 2.f * s * m / den2 + g_m * 2.f * tt;
-  const float g_dlo = (g_num + g_den) * tt + g_m * (t1m * t1m);
-  const float g_dhi = g_den * tt + g_m * theta2;
-  const float g_tt = g_num * d_lo + g_den * dsum + g_m * 2.f * s;
-  const float g_t1m = g_tt * theta + g_m * 2.f * d_lo * t1m;
-  const float g_theta = g_num * 2.f * s * theta + g_m * 2.f * d_hi * theta
-                        + g_tt * t1m - g_t1m;
-  const float g_th_raw =
-      (theta_raw >= 0.f && theta_raw <= 1.f) ? g_theta : 0.f;
-  const float g_vs = g_th_raw / wb;
-  float g_w = -g_th_raw * theta_raw / wb;
-  g_h += g_s / wb;
-  g_w -= g_s * s / wb;
-  const float g_xhi = g_w;
-  const float g_xlo = -g_th_raw / wb - g_w;
-  const float g_yhi = g_h;
-  const float g_ylo = g_y - g_h;
-
-  // knots -> bin sizes -> softmax, for each axis; knot j is interior for
-  // 1 <= j <= K-1, and moves with size i < j
-  const float two_b = 2.f * bound;
-  const float c_lo_x = idx >= 1 ? g_xlo : 0.f;
-  const float c_hi_x = idx + 1 <= K - 1 ? g_xhi : 0.f;
-  const float c_lo_y = idx >= 1 ? g_ylo : 0.f;
-  const float c_hi_y = idx + 1 <= K - 1 ? g_yhi : 0.f;
+// One axis of a spline over its K lanes, lane j holding v = raw[j] (+ bias):
+// sets *p to the lane's softmax entry e_j / sum and returns knot j + 1 (the
+// pinned end on lane K-1), each bit for bit as softmax_exp and knots form it.
+template <int K>
+__device__ __forceinline__ float lane_knot(float v, int j, float min_bin,
+                                           float scale, float bound,
+                                           float* p) {
+  const float e = expf(v - group_max<K>(v));
+  float sum = 0.f;
 #pragma unroll
-  for (int axis = 0; axis < 2; ++axis) {
-    float* ra = r + axis * K;
-    const float scale = axis == 0 ? scale_w : scale_h;
-    const float c_lo = axis == 0 ? c_lo_x : c_lo_y;
-    const float c_hi = axis == 0 ? c_hi_x : c_hi_y;
-    float e[K];
-    const float sum = softmax_exp<K, BIAS>(ra, b + axis * K, e);
-    float dot = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      e[k] = e[k] / sum;                                   // p_k
-      const float g_p = scale * two_b
-                        * ((k < idx ? c_lo : 0.f) + (k <= idx ? c_hi : 0.f));
-      dot += e[k] * g_p;
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float g_p = scale * two_b
-                        * ((k < idx ? c_lo : 0.f) + (k <= idx ? c_hi : 0.f));
-      ra[k] = e[k] * (g_p - dot);
-    }
-  }
-  // the two interior derivatives of the bin: softplus' = sigmoid
-  const float z_lo = expf(u_lo), z_hi = expf(u_hi);
-  const float sg_lo = u_lo > 20.f ? 1.f : z_lo / (z_lo + 1.f);
-  const float sg_hi = u_hi > 20.f ? 1.f : z_hi / (z_hi + 1.f);
+  for (int k = 0; k < K; ++k) sum += __shfl_sync(kWarp, e, k, K);
+  *p = e / sum;
+  const float size = min_bin + scale * *p;
+  float cs = 0.f, mine = 0.f;
 #pragma unroll
   for (int k = 0; k < K - 1; ++k) {
-    float g = 0.f;
-    if (idx > 0 && k == idx - 1) g += g_dlo * sg_lo;
-    if (idx < K - 1 && k == idx) g += g_dhi * sg_hi;
-    r[2 * K + k] = g;
+    cs += __shfl_sync(kWarp, size, k, K);
+    mine = k == j ? cs : mine;
   }
-  return g_vs;
+  return j < K - 1 ? mine * (2.f * bound) - bound : bound;
 }
 
 template <int K, bool BIAS>
@@ -532,32 +472,122 @@ rqs_grad(const float* __restrict__ x, const float* __restrict__ raw,
          const float* __restrict__ g_logdet, float* __restrict__ g_x,
          float* __restrict__ g_raw, int n, int d, float bound) {
   constexpr int R = 3 * K - 1;
-  constexpr int T = kGradThreads;
-  __shared__ float s_raw[T * R];
-  __shared__ float s_bias[R];
-  const long long first = (long long)blockIdx.x * T;
-  const int count = (int)min((long long)T, (long long)n * d - first);
+  const float min_w = (float)kMinBinWidth;
+  const float scale_w = (float)(1.0 - kMinBinWidth * K);
+  const float min_h = (float)kMinBinHeight;
+  const float scale_h = (float)(1.0 - kMinBinHeight * K);
+  const int splines = n * d;                 // < 2^31: pf_rqs_grad_launch
+  const int j = (int)threadIdx.x % K;
+  const int first = (int)(threadIdx.x & 31u) - j;   // the group's lane 0
+  const int spline =
+      (int)blockIdx.x * (kGradThreads / K) + (int)threadIdx.x / K;
+  const bool live = spline < splines;
+  const int sp = live ? spline : splines - 1;
+
+  const float* r = raw + (long long)sp * R;
+  float w = r[j], h = r[K + j];
+  float u = j < K - 1 ? r[2 * K + j] : 0.f;
   if (BIAS) {
-    for (int k = threadIdx.x; k < R; k += T) s_bias[k] = bias[k];
+    w += bias[j];
+    h += bias[K + j];
+    if (j < K - 1) u += bias[2 * K + j];
   }
-  const float* src = raw + first * R;
-  if (count == T) {
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      s_raw[j * T + threadIdx.x] = src[j * T + threadIdx.x];
-    }
-  } else {
-    for (int i = threadIdx.x; i < count * R; i += T) s_raw[i] = src[i];
+  const float v = x[sp], g_y = g_out[sp], g_l = g_logdet[sp / d];
+  const bool inside = fabsf(v) <= bound;
+  const float vs = fminf(fmaxf(v, -bound), bound);
+
+  // the forward's knots, bin and derivatives
+  float p_w, p_h;
+  const float kx = lane_knot<K>(w, j, min_w, scale_w, bound, &p_w);
+  const float ky = lane_knot<K>(h, j, min_h, scale_h, bound, &p_h);
+  const unsigned below = __ballot_sync(kWarp, j < K - 1 && vs >= kx);
+  const int idx = __popc((below >> first) & ((1u << (K - 1)) - 1u));
+  const float z = expf(u);
+  const float dv = kMinDerivative + (u > 20.f ? u : log1pf(z));  // softplus
+  // every lane shuffles, then selects: a shuffle under a branch that
+  // differs between the groups of a warp would not be reached by all
+  const int lo = idx > 0 ? idx - 1 : 0;
+  const float kx_lo = __shfl_sync(kWarp, kx, lo, K);
+  const float ky_lo = __shfl_sync(kWarp, ky, lo, K);
+  const float dv_lo = __shfl_sync(kWarp, dv, lo, K);
+  const float x_hi = __shfl_sync(kWarp, kx, idx, K);
+  const float y_hi = __shfl_sync(kWarp, ky, idx, K);
+  const float dv_hi = __shfl_sync(kWarp, dv, idx, K);
+  const float x_lo = idx > 0 ? kx_lo : -bound;
+  const float y_lo = idx > 0 ? ky_lo : -bound;
+  const float d_lo = idx > 0 ? dv_lo : 1.f;
+  const float d_hi = idx < K - 1 ? dv_hi : 1.f;
+
+  // the forward's map; theta by an IEEE division, as autograd's clamp
+  // sees it, the other quotients by fast reciprocals (they enter only the
+  // gradient)
+  const float wb = x_hi - x_lo;
+  const float hb = y_hi - y_lo;
+  const float iw = __fdividef(1.f, wb);
+  const float s = hb * iw;
+  const float dsum = d_hi + d_lo - 2.f * s;
+  const float theta_raw = (vs - x_lo) / wb;
+  const float theta = fminf(fmaxf(theta_raw, 0.f), 1.f);
+  const float t1m = 1.f - theta;
+  const float tt = theta * t1m;
+  const float denom = s + dsum * tt;
+  const float iq = __fdividef(1.f, denom);
+  const float theta2 = theta * theta;
+  const float num = s * theta2 + d_lo * tt;
+  const float m = d_hi * theta2 + 2.f * s * tt + d_lo * (t1m * t1m);
+
+  // y = y_lo + hb·num/denom and log(max(dydx, 1e-30)) in reverse, with
+  // log dydx = 2 log s + log m - 2 log denom (s, m, denom > 0)
+  const float gl = s * s * m * (iq * iq) >= 1e-30f ? g_l : 0.f;
+  const float g_num = g_y * hb * iq;
+  const float g_m = gl * __fdividef(1.f, m);
+  const float g_den = -g_y * hb * num * (iq * iq) - 2.f * gl * iq;
+  float g_h = g_y * num * iq;
+  const float g_s = g_num * theta2 + g_den * (1.f - 2.f * tt)
+                    + 2.f * gl * __fdividef(1.f, s) + g_m * 2.f * tt;
+  const float g_dlo = (g_num + g_den) * tt + g_m * (t1m * t1m);
+  const float g_dhi = g_den * tt + g_m * theta2;
+  const float g_tt = g_num * d_lo + g_den * dsum + g_m * 2.f * s;
+  const float g_t1m = g_tt * theta + g_m * 2.f * d_lo * t1m;
+  const float g_theta = g_num * 2.f * s * theta + g_m * 2.f * d_hi * theta
+                        + g_tt * t1m - g_t1m;
+  const float g_th_raw =
+      (theta_raw >= 0.f && theta_raw <= 1.f) ? g_theta : 0.f;
+  const float g_vs = g_th_raw * iw;
+  float g_w = -g_th_raw * theta_raw * iw;
+  g_h += g_s * iw;
+  g_w -= g_s * s * iw;
+  const float g_xhi = g_w;
+  const float g_xlo = -g_th_raw * iw - g_w;
+  const float g_yhi = g_h;
+  const float g_ylo = g_y - g_h;
+
+  // knots -> bin sizes -> softmax, lane j's entry of each axis: knot i is
+  // interior for 1 <= i <= K-1 and moves with size j < i
+  const float two_b = 2.f * bound;
+  const float c_lo_x = idx >= 1 ? g_xlo : 0.f;
+  const float c_hi_x = idx + 1 <= K - 1 ? g_xhi : 0.f;
+  const float c_lo_y = idx >= 1 ? g_ylo : 0.f;
+  const float c_hi_y = idx + 1 <= K - 1 ? g_yhi : 0.f;
+  const float gp_w = scale_w * two_b
+                     * ((j < idx ? c_lo_x : 0.f) + (j <= idx ? c_hi_x : 0.f));
+  const float gp_h = scale_h * two_b
+                     * ((j < idx ? c_lo_y : 0.f) + (j <= idx ? c_hi_y : 0.f));
+  const float dot_w = group_sum<K>(p_w * gp_w);
+  const float dot_h = group_sum<K>(p_h * gp_h);
+  // the bin's two interior derivatives: softplus' = sigmoid
+  const float sg = u > 20.f ? 1.f : __fdividef(z, z + 1.f);
+  float g_u = 0.f;
+  if (idx > 0 && j == idx - 1) g_u = g_dlo * sg;
+  if (idx < K - 1 && j == idx) g_u = g_dhi * sg;
+
+  if (live) {
+    float* gr = g_raw + (long long)sp * R;
+    gr[j] = inside ? p_w * (gp_w - dot_w) : 0.f;
+    gr[K + j] = inside ? p_h * (gp_h - dot_h) : 0.f;
+    if (j < K - 1) gr[2 * K + j] = inside ? g_u : 0.f;
+    if (j == 0) g_x[sp] = inside ? g_vs : g_y;
   }
-  __syncthreads();
-  if ((int)threadIdx.x < count) {
-    const long long sp = first + threadIdx.x;
-    g_x[sp] = spline_grad<K, BIAS>(s_raw + threadIdx.x * R, s_bias, x[sp],
-                                   g_out[sp], g_logdet[sp / d], bound);
-  }
-  __syncthreads();
-  float* dst = g_raw + first * R;
-  for (int i = threadIdx.x; i < count * R; i += T) dst[i] = s_raw[i];
 }
 
 template <int K, bool BIAS>
@@ -565,11 +595,10 @@ int launch_grad(const float* x, const float* raw, const float* bias,
                 const float* g_out, const float* g_logdet, float* g_x,
                 float* g_raw, int n, int d, float bound,
                 cudaStream_t stream) {
-  constexpr int T = kGradThreads;
-  const long long splines = (long long)n * d;
-  const int grid = (int)((splines + T - 1) / T);
-  rqs_grad<K, BIAS><<<grid, T, 0, stream>>>(x, raw, bias, g_out, g_logdet,
-                                            g_x, g_raw, n, d, bound);
+  constexpr int S = kGradThreads / K;        // splines a block
+  const int grid = (int)(((long long)n * d + S - 1) / S);
+  rqs_grad<K, BIAS><<<grid, kGradThreads, 0, stream>>>(
+      x, raw, bias, g_out, g_logdet, g_x, g_raw, n, d, bound);
   return (int)cudaGetLastError();
 }
 
@@ -582,6 +611,14 @@ int dispatch_grad(const float* x, const float* raw, const float* bias,
                                      g_raw, n, d, bound, stream)
               : launch_grad<K, false>(x, raw, bias, g_out, g_logdet, g_x,
                                       g_raw, n, d, bound, stream);
+}
+
+// make `device` current, unless it already is
+int use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  return (int)err;
 }
 
 struct Launch {
@@ -639,8 +676,8 @@ extern "C" int pf_rqs_launch(const void* x, const void* raw, const void* bias,
       || smem_bytes < smem_layout_bytes(rows_per_tile, d, k)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const int err = use_device(device);
+  if (err != 0) return err;
   const Launch a{static_cast<const float*>(x), static_cast<const float*>(raw),
                  static_cast<const float*>(bias), static_cast<float*>(out),
                  static_cast<float*>(logdet), n, d, rows_per_tile, grid,
@@ -658,18 +695,20 @@ extern "C" int pf_rqs_launch(const void* x, const void* raw, const void* bias,
 // Gradients of the forward spline on raw + bias: x [n, d], raw
 // [n, d·(3k-1)], g_out [n, d], g_logdet [n] -> g_x [n, d], g_raw
 // [n, d·(3k-1)]; contiguous float32 on `device`, bias [3k-1] float32 or
-// null (it gets no gradient). Returns the CUDA error code of the launch.
+// null (it gets no gradient); n·d below 2^31. Returns the CUDA error code
+// of the launch.
 extern "C" int pf_rqs_grad_launch(const void* x, const void* raw,
                                   const void* bias, const void* g_out,
                                   const void* g_logdet, void* g_x,
                                   void* g_raw, int n, int d, int k,
                                   float tail_bound, int device,
                                   void* stream) {
-  if (n <= 0 || d <= 0 || device < 0 || device >= kMaxDevices) {
+  if (n <= 0 || d <= 0 || device < 0 || device >= kMaxDevices
+      || (long long)n * d >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const int err = use_device(device);
+  if (err != 0) return err;
   const float* xf = static_cast<const float*>(x);
   const float* rf = static_cast<const float*>(raw);
   const float* bf = static_cast<const float*>(bias);

@@ -333,29 +333,44 @@ class RqsGradKernel:
         contiguous float32 on one CUDA device, bias [3K-1] or None ->
         (g_x [N, D], g_raw [N, D·(3K-1)]) of the forward spline on
         raw + bias, on PyTorch's current stream."""
-        n, d = _check_spline_args(x, raw, num_bins, bias)
-        for name, t, shape in (("g_out", g_out, (n, d)),
-                               ("g_logdet", g_logdet, (n,))):
-            if (t.device != x.device or t.dtype != torch.float32
-                    or tuple(t.shape) != shape or not t.is_contiguous()):
-                raise ValueError(f"{name} must be a contiguous float32 "
-                                 f"{list(shape)} on {x.device}, got "
-                                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        _check_spline_args(x, raw, num_bins, bias)
+        _check_upstream(x, g_out, g_logdet)
+        return self._launch(x, raw, g_out, g_logdet, num_bins, tail_bound,
+                            bias)
+
+    def _launch(self, x, raw, g_out, g_logdet, num_bins, tail_bound, bias):
+        """`launch` without its checks, for a caller that has made them
+        (RqsForwardFn.backward: its forward checked x, raw and bias)."""
         g_x = torch.empty_like(x)
         g_raw = torch.empty_like(raw)
-        if n == 0:
+        if x.shape[0] == 0:
             return g_x, g_raw
-        fn = self._bind()
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), raw.data_ptr(),
-                 None if bias is None else bias.data_ptr(), g_out.data_ptr(),
-                 g_logdet.data_ptr(), g_x.data_ptr(), g_raw.data_ptr(), n, d,
-                 num_bins, float(tail_bound), x.device.index or 0, stream)
+        device = x.get_device()
+        err = self._bind()(
+            x.data_ptr(), raw.data_ptr(),
+            None if bias is None else bias.data_ptr(), g_out.data_ptr(),
+            g_logdet.data_ptr(), g_x.data_ptr(), g_raw.data_ptr(),
+            x.shape[0], x.shape[1], num_bins, float(tail_bound), device,
+            torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"rqs grad kernel launch failed with CUDA "
                                f"error {err}")
         self.launches += 1
         return g_x, g_raw
+
+
+def _check_upstream(x: torch.Tensor, g_out: torch.Tensor,
+                    g_logdet: torch.Tensor):
+    """The backward's upstream gradients: g_out [N, D] and g_logdet [N],
+    contiguous float32 on x's device."""
+    n, d = x.shape
+    for name, t, shape in (("g_out", g_out, (n, d)),
+                           ("g_logdet", g_logdet, (n,))):
+        if (t.device != x.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{list(shape)} on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 GRAD_KERNEL = RqsGradKernel(KERNEL)
@@ -390,8 +405,11 @@ class RqsForwardFn(torch.autograd.Function):
                  else g_out.float().contiguous())
         g_logdet = (x.new_zeros(x.shape[0]) if g_logdet is None
                     else g_logdet.float().contiguous())
-        g_x, g_raw = GRAD_KERNEL.launch(x, raw, g_out, g_logdet, *ctx.spline,
-                                        bias)
+        # forward checked x, raw and bias (saved unchanged: autograd checks
+        # their versions); the upstream gradients are new here
+        _check_upstream(x, g_out, g_logdet)
+        g_x, g_raw = GRAD_KERNEL._launch(x, raw, g_out, g_logdet,
+                                         *ctx.spline, bias)
         return g_x, g_raw, None, None, None
 
 

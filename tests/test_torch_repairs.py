@@ -136,7 +136,7 @@ def test_forward_fn_refuses_double_backward(monkeypatch):
         return g_x.detach(), g_raw.detach().reshape(raw.shape)
 
     monkeypatch.setattr(rqs_cuda.KERNEL, "launch", forward_launch)
-    monkeypatch.setattr(rqs_cuda.GRAD_KERNEL, "launch", grad_launch)
+    monkeypatch.setattr(rqs_cuda.GRAD_KERNEL, "_launch", grad_launch)
     x, raw, bias = _spline_inputs("cpu")
     x.requires_grad_(True)
     # one derivative is the plain VJP's
