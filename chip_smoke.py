@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""On-card check of posteriflow_torch: serve and train the 15-D flagship
-release on one NVIDIA GPU through the hand-written CUDA RQS kernels
-(csrc/rqs.cu: rqs_tile, a TMA bulk-copy ring of row tiles, one thread per
-spline, the conditioner's derivative bias added in the kernel; rqs_grad,
-its backward, K lanes a spline).
+"""On-card check of posteriflow_torch: serve, train and importance-correct
+the 15-D flagship release on one NVIDIA GPU through the hand-written CUDA
+RQS kernels (csrc/rqs.cu: rqs_tile, a TMA bulk-copy ring of row tiles, one
+thread per spline, the conditioner's derivative bias added in the kernel;
+rqs_grad, its backward, K lanes a spline).
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -15,9 +15,10 @@ Phases (any failure exits non-zero and prints no result line):
       `-Xptxas -v` says of every instance (registers, spills): the K = 16
       instances must spill nothing.
   (b) the kernel against its plain PyTorch version on raw + bias at the
-      flagship sampling shape (N = 131072 rows, D = 7, K = 16) and at ragged
-      N (641, 5000: a part tile), both directions, with and without the
-      bias, with tails beyond ±5: out and logdet max |Δ| = 0.
+      flagship sampling shape (N = 131072 rows, D = 7, K = 16), at ragged
+      N (641, 5000: a part tile) and at importance sampling's 4096 rows,
+      both directions, with and without the bias, with tails beyond ±5: out
+      and logdet max |Δ| = 0.
   (c) serve 4 requests through `infer` (raw 32 s coloured Gaussian noise per
       detector from the design ASD, 5000 draws, ranks 0, 1, 0, 1); the
       launch counter must grow by one per flow layer per request. The
@@ -71,6 +72,19 @@ Phases (any failure exits non-zero and prints no result line):
       record, finite gate metrics, ckpt/last and ckpt/best; resume_from
       continues the epochs and the step count; from_checkpoint(best)
       samples on the card.
+  (o) importance sampling: infer 5000 draws on a 15-D injection, then
+      importance_correct against the phase/time-marginalized likelihood at
+      its defaults (pad_block 4096, up to 25 tempered stages of 5
+      Metropolis steps): the direct ESS, the ladder, acceptance, log Z, the
+      time split (log q, first likelihood batch, moves), peak memory; the
+      rqs_tile launches must be 20 + 100·(stages − 1) (20 without the
+      ladder) and the plain spline is never called. The same request
+      through tools/infer.py --inject --importance must save normalized
+      weights. Card against the CPU on 64 θ: both likelihoods within 1e-3
+      of 1 + ½‖h_w‖² + |Re⟨d, h_w⟩|, symmetrized_log_q in float32 within
+      1e-3 nats. rqs_tile at 4096 rows timed beside its bound and the
+      plain version; run_smc_prior on the same likelihood (n = 4096,
+      stages capped at 10), which launches no spline.
   (e) the kernel table and the device as JSON lines; the last line is
       {"ok": true, "device": {...}}.
 Every time printed names the card and its power limit.
@@ -94,6 +108,7 @@ SAMPLE_RATE = 4096
 DETECTORS = ("H1", "L1", "V1")
 N_ROWS, D_TR, K_BINS, TAIL = 131072, 7, 16, 5.0   # flagship sampling shape
 RAGGED_ROWS = (641, 5000)                         # a part tile at the end
+IS_ROWS = 4096                    # importance_correct's pad_block (phase o)
 # the kernel sums and groups as the plain version does, built with
 # -fmad=false: both agree bit for bit
 TOL_OUT, TOL_LOGDET = 0.0, 0.0
@@ -140,6 +155,18 @@ TRAIN_PARITY_SEEDS = tuple(range(21, 27))
 TRAIN_KERNEL_TOL, TRAIN_LOSS_TOL, TRAIN_TOL = 1e-4, 1e-4, 1e-2
 TF32_GUARD_TOL = 1e-5
 TRAIN_STEPS = 20
+# importance sampling (phase o): run_smc_prior's stages capped here (40 by
+# default) to keep the run short. The card against the port's CPU path on
+# IS_REF_THETA parameter sets: each likelihood within IS_LL_TOL of
+# 1 + ½‖h_w‖² + |Re⟨d, h_w⟩| (as tests/test_torch_is_likelihood.py holds
+# the port to JAX); the symmetrized flow density in float32 with its median
+# |Δ| within IS_LOGQ_TOL nats. At the flagship's steep points float32
+# itself is off by several 1e-3 nats (the CPU's float32 against a float64
+# run of the same flow on the CPU), so the largest |Δ| is held against
+# that float64 reference: the card's within the larger of IS_LOGQ_TOL and
+# twice the CPU's own.
+IS_SMC_STAGES, IS_REF_THETA, IS_SEED = 10, 64, 3
+IS_LL_TOL, IS_LOGQ_TOL = 1e-3, 1e-3
 TRAIN_NLL0 = (-8.0, -3.0)        # the release's Gaussian val_nll is -5.55
 FIT_STEPS, FIT_VAL_EVENTS = 5, 64
 DEVICE = "cuda"
@@ -252,7 +279,7 @@ def phase_kernel_check(torch, plain, rqs_cuda, card):
     ragged N, both directions, with and without the bias."""
     errs = {}
     flagship = None
-    for n in (N_ROWS, *RAGGED_ROWS):
+    for n in (N_ROWS, *RAGGED_ROWS, IS_ROWS):
         x, raw, bias = spline_inputs(torch, n, seed=n)
         if n == N_ROWS:
             flagship = (x, raw, bias)
@@ -890,7 +917,8 @@ def phase_grad_kernel(torch, plain, rqs_cuda, card):
           f"{host['backward']:.1f} us "
           f"(the earlier design's wrapper: "
           f"{EARLIER_GRAD_CALL_US[0]}-{EARLIER_GRAD_CALL_US[1]} us a call)")
-    fwd = forward_at_train_shape(torch, plain, rqs_cuda, *train_inputs)
+    x_tr, raw_tr, _, _, bias_tr = train_inputs
+    fwd = forward_timing(torch, plain, rqs_cuda, x_tr, raw_tr, bias_tr)
     print(f"(l) rqs_tile<{K_BINS}, forward, bias> N={TRAIN_ROWS} D={D_TR} "
           f"[{card}]: device time a launch "
           + ("not measured" if fwd["ms"] is None
@@ -948,18 +976,18 @@ def grad_host_us(torch, rqs_cuda, x, raw, g_out, g_ld, bias) -> dict:
     return out
 
 
-def forward_at_train_shape(torch, plain, rqs_cuda, x, raw, g_out, g_ld,
-                           bias):
-    """rqs_tile<K, forward, bias> at the training shape: device time by the
+def forward_timing(torch, plain, rqs_cuda, x, raw, bias):
+    """rqs_tile<K, forward, bias> at x's row count: device time by the
     profiler, CUDA events over back-to-back launches, the plain version's
     time and the kernel's bound."""
-    raw2 = raw.reshape(x.shape[0], -1)
+    n = x.shape[0]
+    raw2 = raw.reshape(n, -1)
 
     def fn():
         return rqs_cuda.KERNEL.launch(x, raw2, K_BINS, TAIL, False,
                                       bias=bias)
-    nbytes = rqs_bytes(TRAIN_ROWS, D_TR, K_BINS)
-    nops = rqs_ops(TRAIN_ROWS, D_TR, K_BINS)
+    nbytes = rqs_bytes(n, D_TR, K_BINS)
+    nops = rqs_ops(n, D_TR, K_BINS)
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOPS
     biased = raw + bias
     return {"ms": kernel_device_ms(torch, fn, "rqs_tile"),
@@ -1404,6 +1432,243 @@ def phase_fit(torch, rqs_cuda, cfg, card):
     return {"launches": fit_launches, "seconds": fit_s}
 
 
+def _ll_scale(torch, theta: np.ndarray, strain: np.ndarray) -> np.ndarray:
+    """1 + ½‖h_w‖² + |Re⟨d, h_w⟩| per θ, float64 on the host."""
+    from posteriflow_torch.physics.simulator import (design_asd,
+                                                     signal_white_fd)
+    h = signal_white_fd(torch.from_numpy(theta), design_asd("cpu")).numpy()
+    h = h.astype(np.complex128)
+    d = (np.fft.rfft(strain.astype(np.float64), axis=-1)
+         / np.sqrt(strain.shape[-1] / 2.0))
+    return (1.0 + 0.5 * np.sum(np.abs(h) ** 2, axis=(1, 2))
+            + np.abs(np.sum(np.real(d[None] * np.conj(h)), axis=(1, 2))))
+
+
+def profile_sweep(torch, imp, engine, ctx, log_l, theta, card):
+    """One SMC stage's sweep (5 Metropolis steps at theta's rows) timed on
+    the host clock and under torch.profiler (device busy share, launches,
+    the kernels that take most of it), and one likelihood batch and one
+    symmetrized flow density at those rows by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+    n = theta.shape[0]
+    ll = log_l(theta).astype(np.float64)
+    lp = imp.host_log_prior(device=DEVICE)(theta).astype(np.float64)
+    lg0 = imp.symmetrized_log_q(engine, ctx, 0, theta, pad_block=n)
+    lg0 = lg0.cpu().numpy().astype(np.float64)
+    x = imp._to_slow(theta.astype(np.float64), marg=True)
+    chol = np.linalg.cholesky((2.38 ** 2 / x.shape[1]) * np.cov(x.T))
+    move = imp._make_fused_move(engine, ctx, 0, log_l.core, marg=True)
+    args = (theta.astype(np.float64), ll, lp, lg0, np.zeros(n), 0.5, chol)
+    move(*args, 1)                                       # warm
+    t0 = time.perf_counter()
+    move(*args, 2)
+    sweep_s = time.perf_counter() - t0
+    t = torch.as_tensor(theta, device=DEVICE)
+    ll_ms = cuda_time_ms(lambda: log_l.core(t), reps=3)
+    lq_ms = cuda_time_ms(lambda: imp.symmetrized_log_q(
+        engine, ctx, 0, t, pad_block=n), reps=3)
+    print(f"(o) one sweep of 5 steps at {n} rows [{card}]: {sweep_s:.3f} s "
+          f"on the host clock; a likelihood batch {ll_ms:.2f} ms, a "
+          f"symmetrized flow density {lq_ms:.2f} ms (CUDA events)")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            move(*args, 3)
+            window_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    except RuntimeError as e:           # no CUPTI on this machine
+        print(f"(o) profiler: not available ({e})")
+        return {"sweep_s": sweep_s, "ll_ms": ll_ms, "lq_ms": lq_ms}
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    rqs_us = sum(e.self_device_time_total for e in kernels
+                 if "rqs_tile" in e.key)
+    print(f"(o) profile of one sweep [{card}]: kernels {busy_us / 1e3:.3f} "
+          f"ms of a {window_us / 1e3:.3f} ms window (device busy "
+          f"{busy_us / window_us:.1%}, under the profiler); {launches} "
+          f"launches; rqs_tile {rqs_us / 1e3:.3f} ms; top kernels:")
+    for e in kernels[:10]:
+        print(f"      {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+              f"{e.key[:100]}")
+    return {"sweep_s": sweep_s, "ll_ms": ll_ms, "lq_ms": lq_ms,
+            "busy_ms": busy_us / 1e3, "window_ms": window_us / 1e3,
+            "launches": launches}
+
+
+def phase_importance(torch, plain, rqs_cuda, engine, engine_cls, state_dict,
+                     cfg, card):
+    """(o) importance-correct a flagship request on the card: infer 5000
+    draws on a 15-D injection, then importance_correct against the
+    marginalized likelihood at its defaults (pad_block 4096, 25 stages of
+    5 Metropolis steps), every flow density in rqs_tile; the same through
+    tools/infer.py; the card against the CPU; the kernel at 4096 rows; the
+    prior SMC on the same likelihood."""
+    import tempfile
+    from pathlib import Path
+
+    from posteriflow_torch.inference import importance as imp
+    from posteriflow_torch.inference.pipeline import infer
+    from posteriflow_torch.inference.preprocessing import prepare_simulated
+    from posteriflow_torch.models.flow import DTYPES
+    from posteriflow_torch.prior import PriorConfig
+    from posteriflow_torch.tools import infer as infer_cli
+    t_phase = time.perf_counter()
+    layers = engine.cfg.flow_layers
+    prep = prepare_simulated([INJECTION], seed=IS_SEED,
+                             psd_bands=cfg.psd_bands,
+                             param_names=cfg.param_names, device=DEVICE)
+    res = infer(engine, data=prep, n_samples=N_SAMPLES, seed=IS_SEED)
+    ctx = engine.encode(prep.strain[None], prep.asd_bands[None])
+    log_l = imp.make_marginalized_log_likelihood(prep.strain, device=DEVICE)
+    counts, restore = _count_plain(torch, plain)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rqs_cuda.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        is_res = imp.importance_correct(engine, ctx[0], 0, res.samples,
+                                        res.log_prob, res.railed, log_l,
+                                        marginalized=True, seed=IS_SEED)
+        wall = time.perf_counter() - t0
+        launches = rqs_cuda.KERNEL.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        restore()
+    ran = is_res.beta_ladder is not None
+    # one padded call per mass ordering for the kept draws, then n_mcmc
+    # steps x 2 orderings a sweep, one sweep a stage but the last
+    expected = 2 * layers + (5 * 2 * layers * (is_res.n_stages - 1)
+                             if ran else 0)
+    diag = is_res.diagnostics
+    sec = diag["seconds"]
+    n_kept = int((~res.railed).sum())
+    print(f"(o) importance_correct, {N_SAMPLES} draws ({n_kept} kept) of a "
+          f"15-D injection, marginalized likelihood, pad_block {IS_ROWS} "
+          f"[{card}]: direct ESS {diag['direct_ess']:.2f} (efficiency "
+          f"{diag['direct_efficiency']:.4f}); ladder "
+          f"{'ran' if ran else 'not needed'}: {is_res.n_stages} stages, "
+          f"beta {is_res.beta_ladder}, acceptance {is_res.mcmc_acceptance},"
+          f" converged {is_res.converged}; log Z/L(0) "
+          f"{is_res.log_evidence_ratio:.4f}; final ESS {is_res.ess:.1f} of "
+          f"{len(is_res.samples)}")
+    print(f"(o) importance_correct {wall:.3f} s wall [{card}]: log q "
+          f"{sec['log_q']:.3f} s, first likelihood batch "
+          f"{sec['likelihood']:.3f} s, moves {sec['moves']:.3f} s, the rest "
+          f"(prior, KDE, host ladder) "
+          f"{wall - sec['log_q'] - sec['likelihood'] - sec['moves']:.3f} s; "
+          f"peak memory {peak:.2f} GiB; rqs_tile launches {launches} "
+          f"(expected {expected}), plain spline calls {counts}")
+    check(launches == expected, f"importance path launched rqs_tile "
+                                f"{launches} times, expected {expected}")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"the plain spline ran on the importance path: {counts}")
+    w = is_res.weights
+    check(bool(np.isfinite(is_res.samples).all())
+          and is_res.samples.shape[1] == engine.cfg.n_params,
+          "importance samples")
+    check(bool(np.isfinite(w).all()) and abs(float(w.sum()) - 1.0) < 1e-6
+          and 0.0 < is_res.ess <= len(w), "importance weights")
+    check(math.isfinite(is_res.log_evidence_ratio), "log evidence")
+
+    # the card against the port's CPU path on the same θ
+    theta = np.concatenate([prep.truth, is_res.samples]).astype(
+        np.float32)[:IS_REF_THETA]
+    scale = _ll_scale(torch, theta, prep.strain)
+    for make in (imp.make_log_likelihood,
+                 imp.make_marginalized_log_likelihood):
+        got = make(prep.strain, device=DEVICE)(theta).astype(np.float64)
+        ref = make(prep.strain, device="cpu")(theta).astype(np.float64)
+        gap = float(np.max(np.abs(got - ref) / scale))
+        print(f"(o) {make.__name__} card vs CPU on {len(theta)} θ: max "
+              f"|Δ|/(1 + ½‖h‖² + |Re<d,h>|) {gap:.3e} (tol {IS_LL_TOL:g}); "
+              f"max |Δ| {np.max(np.abs(got - ref)):.3e} nats")
+        check(gap <= IS_LL_TOL, f"{make.__name__}: card vs CPU {gap}")
+    # the flow's density in float32 on the card and on the CPU, and in
+    # float64 on the CPU (the reference) on one context
+    ctx_cpu = ctx[0].float().cpu()
+    lq = {}
+    for name, dev, dt in (("card", DEVICE, "float32"), ("cpu", "cpu",
+                                                        "float32"),
+                          ("float64", "cpu", "float64")):
+        e = engine_cls(state_dict, dataclasses.replace(cfg, flow_dtype=dt),
+                       device=dev)
+        e.model.to(DTYPES[dt])
+        lq[name] = imp.symmetrized_log_q(e, ctx_cpu, 0, theta,
+                                         pad_block=IS_REF_THETA
+                                         ).cpu().double().numpy()
+    d_lq = np.abs(lq["card"] - lq["cpu"])
+    e_card = float(np.abs(lq["card"] - lq["float64"]).max())
+    e_cpu = float(np.abs(lq["cpu"] - lq["float64"]).max())
+    print(f"(o) symmetrized_log_q float32 card vs CPU on {len(theta)} θ: "
+          f"median |Δ| {np.median(d_lq):.3e} nats (tol {IS_LOGQ_TOL:g}), "
+          f"max {d_lq.max():.3e}; against the float64 CPU reference: card "
+          f"max |Δ| {e_card:.3e}, CPU float32 {e_cpu:.3e} (the card held to "
+          f"the larger of {IS_LOGQ_TOL:g} and twice the CPU's)")
+    check(np.median(d_lq) <= IS_LOGQ_TOL,
+          f"symmetrized_log_q card vs CPU: median {np.median(d_lq)}")
+    check(e_card <= max(IS_LOGQ_TOL, 2.0 * e_cpu),
+          f"symmetrized_log_q card vs float64: {e_card} (CPU {e_cpu})")
+
+    profile_sweep(torch, imp, engine, ctx[0], log_l,
+                  is_res.samples[:IS_ROWS].astype(np.float32), card)
+
+    # the kernel at the sweep's shape
+    x, raw, bias = spline_inputs(torch, IS_ROWS, seed=IS_ROWS + 1)
+    fwd = forward_timing(torch, plain, rqs_cuda, x, raw, bias)
+    print(f"(o) rqs_tile<{K_BINS}, forward, bias> N={IS_ROWS} D={D_TR} "
+          f"[{card}]: device time a launch "
+          + ("not measured" if fwd["ms"] is None
+             else f"{fwd['ms'] * 1e3:.2f} us")
+          + f" (profiler), {fwd['events_ms'] * 1e3:.2f} us by CUDA events "
+          f"over back-to-back launches, plain {fwd['plain_ms'] * 1e3:.1f} us; "
+          f"bound {fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']}: "
+          f"{rqs_bytes(IS_ROWS, D_TR, K_BINS)} B)")
+
+    # the flow-independent sampler on the same likelihood: no spline
+    rqs_cuda.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    smc = imp.run_smc_prior(log_l, n=IS_ROWS, seed=IS_SEED,
+                            max_stages=IS_SMC_STAGES,
+                            prior_cfg=PriorConfig(precessing=True))
+    smc_s = time.perf_counter() - t0
+    print(f"(o) run_smc_prior n={IS_ROWS}, max_stages capped at "
+          f"{IS_SMC_STAGES} (40 by default) to keep the run short "
+          f"[{card}]: {smc.n_stages} stages, beta {smc.beta_ladder}, "
+          f"converged {smc.converged}, log Z/L(0) "
+          f"{smc.log_evidence_ratio:.4f} ("
+          + ("" if smc.converged else "partial, ")
+          + f"against IS {is_res.log_evidence_ratio:.4f}), {smc_s:.3f} s, "
+          f"rqs_tile launches {rqs_cuda.KERNEL.launches}")
+    check(rqs_cuda.KERNEL.launches == 0, "run_smc_prior launched a spline")
+    check(math.isfinite(smc.log_evidence_ratio)
+          and bool(np.isfinite(smc.weights).all()), "run_smc_prior output")
+
+    # the command line: the same request, saved with its weights
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cli_res = infer_cli.main([
+            "--ckpt", RELEASE, "--inject", "--inject-params",
+            json.dumps([INJECTION]), "--importance", "--n-samples",
+            str(N_SAMPLES), "--seed", str(IS_SEED), "--device", DEVICE,
+            "--out", tmp])
+        cli_s = time.perf_counter() - t0
+        w = np.load(Path(tmp) / "weights.npy")
+        samples = np.load(Path(tmp) / "samples.npy")
+    print(f"(o) tools/infer.py --inject --importance [{card}]: {cli_s:.3f} s;"
+          f" saved {len(w)} weights summing to {float(w.sum()):.9f}, "
+          f"ESS {cli_res.diagnostics['importance']['ess']:.1f}, "
+          f"{cli_res.diagnostics['importance']['n_stages']} stages")
+    check(len(w) == len(samples) and bool((w >= 0).all())
+          and abs(float(w.sum()) - 1.0) < 1e-6, "saved weights")
+    print(f"(o) phase done in {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
+    return {"launches": launches, "forward": fwd, "seconds": wall,
+            "peak_gib": peak}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1466,6 +1731,8 @@ def main() -> int:
                                     state_dict, card)
         train = phase_train_steps(torch, plain, rqs_cuda, train_cfg, card)
         fitted = phase_fit(torch, rqs_cuda, train_cfg, card)
+        imp = phase_importance(torch, plain, rqs_cuda, engine,
+                               InferenceEngine, state_dict, cfg, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1484,7 +1751,8 @@ def main() -> int:
                              f"train {TRAIN_STEPS} steps (m)":
                                  train["launches"][0],
                              "fit 2 epochs + resume 1 (n)":
-                                 fitted["launches"][0]},
+                                 fitted["launches"][0],
+                             "importance correction (o)": imp["launches"]},
         "max_abs_err": max(errs["inverse"][0], errs["forward"][0]),
         "max_abs_err_logdet": max(errs["inverse"][1], errs["forward"][1]),
         "ms": k_ms, "plain_ms": p_ms,
@@ -1493,6 +1761,7 @@ def main() -> int:
         "forward_no_bias_ms": bench["times"]["forward no bias"][0],
         "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
         f"rows_{TRAIN_ROWS}_forward_bias": grad["forward_train"],
+        f"rows_{IS_ROWS}_forward_bias": imp["forward"],
         "library_ms": None,
     }, {
         "name": "rqs_grad<16, bias> (RQS spline backward, training)",
@@ -1524,7 +1793,9 @@ def main() -> int:
           f"{sim_ms[BENCH_EVENTS]:.3f} ms at B={BENCH_EVENTS}, "
           f"{sim_ms[TRAIN_BATCH]:.3f} ms at B={TRAIN_BATCH}; training "
           f"{train['steps_per_s']:.3f} steps/s, {train['events_per_s']:.1f} "
-          f"events/s at batch {train_cfg.batch_size}")
+          f"events/s at batch {train_cfg.batch_size}; importance "
+          f"correction {imp['seconds']:.3f} s (peak {imp['peak_gib']:.2f} "
+          f"GiB)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,13 @@
 """Inference: strain -> PosteriorResult (prepare_real, infer, OOD verdict,
-refinement gate)."""
+refinement gate), and the importance-sampling correction against the
+exact Whittle likelihood (tempered SMC, prior SMC)."""
+
+from posteriflow_torch.inference.importance import (
+    ISResult, importance_correct, make_log_likelihood,
+    make_marginalized_log_likelihood, run_smc_prior, symmetrized_log_q)
+
+__all__ = [
+    "ISResult", "importance_correct", "make_log_likelihood",
+    "make_marginalized_log_likelihood", "run_smc_prior",
+    "symmetrized_log_q",
+]

@@ -170,6 +170,8 @@ class PosteriorResult:
         np.save(outdir / "samples.npy", self.samples)
         if self.log_prob is not None:
             np.save(outdir / "log_prob.npy", self.log_prob)
+        if self.weights is not None:       # importance weights, sum 1
+            np.save(outdir / "weights.npy", self._w())
         med = self.median()
         ci = self.credible_interval(0.9)
         with open(outdir / "summary.csv", "w") as f:

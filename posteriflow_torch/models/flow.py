@@ -28,7 +28,10 @@ from posteriflow_torch.utils.precision import fp32_exact
 # derivative-channel init bias: min_derivative + softplus(b) = 1 exactly
 _DERIV_BIAS = float(np.log(np.expm1(1.0 - DEFAULT_MIN_DERIVATIVE)))
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float64 is a reference precision for checks (a model moved there with
+# .double() runs on the CPU, where the spline is the plain version)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
 
 
 def make_permutations(features: int, num_layers: int,
@@ -66,7 +69,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 class Conditioner(nn.Module):
     """MLP (identity half + context) -> raw RQS params [..., n_transform,
     3K-1]. Hidden matmuls run in `compute_dtype`; the output projection
-    runs in float32, since its output feeds the float32 spline.
+    runs in its weights' dtype (float32: its output feeds the float32
+    spline).
 
     The context has its own first-layer projection, broadcast-added to the
     x projection, so a context of shape [B, 1, C] against x [B, n, D] is
@@ -100,7 +104,8 @@ class Conditioner(nn.Module):
         h = gelu(dense(self.in_x, x_id, dt) + dense(self.in_ctx, context, dt))
         for i in range(self.n_mid):
             h = gelu(dense(getattr(self, f"mid_{i}"), h, dt))
-        out = F.linear(h.float(), self.out.weight, self.out.bias)
+        out = F.linear(h.to(self.out.weight.dtype), self.out.weight,
+                       self.out.bias)
         return out.reshape(*out.shape[:-1], self.n_transform, -1)
 
     def forward(self, x_id: torch.Tensor,

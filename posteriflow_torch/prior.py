@@ -1,6 +1,7 @@
-"""Astrophysical parameter priors: batched sampling from a torch.Generator.
+"""Astrophysical parameter priors: batched sampling from a torch.Generator,
+and the closed-form BBH training prior of importance sampling.
 
-Port of the sampling half of posteriflow_tpu/prior.py (:49-213, :323): the
+Port of posteriflow_tpu/prior.py. The sampling half (:49-213, :323): the
 event mix BBH / BNS / NSBH by `type_probs`, per-type mass boxes
 (log-uniform BH masses, uniform NS masses), P(d) ∝ d² or uniform distance,
 isotropic sky and inclination, uniform psi, phase and time offset, aligned
@@ -8,7 +9,9 @@ spin magnitudes per type, isotropic tilts and uniform azimuths for the
 15-D set, the overlap count and the pre-merger conversion. All three type
 candidates are computed and one is selected, as in the JAX package. The
 JAX and torch random streams differ, so the two are held to each other by
-distribution only.
+distribution only. The closed-form half (:220-320): `log_prior_bbh`, the
+BBH prior's log density on tensors, and `sample_prior_bbh`, its exact
+draw in numpy from a np.random.Generator (the same stream as JAX's).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from posteriflow_torch import PARAM_NAMES
@@ -204,3 +208,99 @@ def loudness(m1, m2, d):
     """Rank-ordering proxy: whitened amplitude ~ Mc^(5/6)/d_L."""
     mc = (m1 * m2) ** 0.6 / (m1 + m2) ** 0.2
     return mc ** (5.0 / 6.0) / torch.clamp_min(d, 1.0)
+
+
+# ── Closed-form density and draw (importance sampling) ───────────────────────
+
+def log_prior_bbh(theta: torch.Tensor,
+                  cfg: PriorConfig = PriorConfig()) -> torch.Tensor:
+    """log p(theta) of the BBH training prior, theta [..., 11] or [..., 15]
+    (the precessing set adds isotropic tilts and uniform azimuths); -inf
+    outside the support.
+
+    Flat-in-log masses with m2 <= m1 (joint density 1/(m1·m2·lr·log(m1/lo))),
+    P(d) ∝ d² or uniform, isotropic angles, uniform psi, phase, time and
+    spin magnitudes. As in the JAX package, a2 is bounded by the BBH
+    secondary's spin limit while the density uses the primary's (both
+    0.99)."""
+    m1, m2, d = theta[..., 0], theta[..., 1], theta[..., 2]
+    ra, dec, theta_jn = theta[..., 3], theta[..., 4], theta[..., 5]
+    psi, phase = theta[..., 6], theta[..., 7]
+    t, a1, a2 = theta[..., 8], theta[..., 9], theta[..., 10]
+
+    lo, hi = _MASS_LO[BBH], _MASS_HI[BBH]
+    d_lo, d_hi = _DIST_LO[BBH], _DIST_HI[BBH]
+    lr = math.log(hi) - math.log(lo)
+
+    lp = -torch.log(m1) - math.log(lr)
+    lp = lp + (-torch.log(m2) - torch.log(torch.log(m1 / lo)))
+    if cfg.distance_prior == "uniform":
+        lp = lp - math.log(d_hi - d_lo)
+    else:
+        lp = lp + torch.log(3.0 * d ** 2 / (d_hi ** 3 - d_lo ** 3))
+    lp = lp - math.log(2 * math.pi)                 # ra
+    lp = lp + torch.log(torch.cos(dec) / 2.0)       # dec
+    lp = lp + torch.log(torch.sin(theta_jn) / 2.0)  # theta_jn
+    lp = lp - math.log(math.pi)                     # psi
+    lp = lp - math.log(2 * math.pi)                 # phase
+    lp = lp - math.log(_T_OFF_HI - _T_OFF_LO)       # geocent_time
+    lp = lp - 2.0 * math.log(_SPIN1_HI[BBH])        # a1, a2
+
+    inside = ((m1 >= lo) & (m1 <= hi) & (m2 >= lo) & (m2 <= m1)
+              & (d >= d_lo) & (d <= d_hi)
+              & (ra >= 0) & (ra <= 2 * math.pi)
+              & (dec >= -math.pi / 2) & (dec <= math.pi / 2)
+              & (theta_jn >= 0) & (theta_jn <= math.pi)
+              & (psi >= 0) & (psi <= math.pi)
+              & (phase >= 0) & (phase <= 2 * math.pi)
+              & (t >= _T_OFF_LO) & (t <= _T_OFF_HI)
+              & (a1 >= 0) & (a1 <= _SPIN1_HI[BBH])
+              & (a2 >= 0) & (a2 <= _SPIN2_HI[BBH]))
+
+    if theta.shape[-1] >= 15:
+        t1, t2 = theta[..., 11], theta[..., 12]
+        p12, pjl = theta[..., 13], theta[..., 14]
+        lp = lp + torch.log(torch.clamp_min(torch.sin(t1), 1e-30) / 2.0)
+        lp = lp + torch.log(torch.clamp_min(torch.sin(t2), 1e-30) / 2.0)
+        lp = lp - 2.0 * math.log(2 * math.pi)       # phi_12, phi_jl
+        inside = inside & ((t1 >= 0) & (t1 <= math.pi) & (t2 >= 0)
+                           & (t2 <= math.pi) & (p12 >= 0)
+                           & (p12 <= 2 * math.pi) & (pjl >= 0)
+                           & (pjl <= 2 * math.pi))
+
+    neg_inf = torch.full_like(lp, -math.inf)
+    lp = torch.where(torch.isfinite(lp), lp, neg_inf)
+    return torch.where(inside, lp, neg_inf)
+
+
+def sample_prior_bbh(rng: np.random.Generator, n: int,
+                     cfg: PriorConfig = PriorConfig()) -> np.ndarray:
+    """n draws [n, 11] (or [n, 15] with cfg.precessing) float64 from the
+    density of log_prior_bbh, on the host; the same calls on `rng` as the
+    JAX package makes, so the same generator gives the same draws."""
+    lo, hi = _MASS_LO[BBH], _MASS_HI[BBH]
+    d_lo, d_hi = _DIST_LO[BBH], _DIST_HI[BBH]
+    lm1 = rng.uniform(np.log(lo), np.log(hi), n)
+    m1 = np.exp(lm1)
+    m2 = np.exp(rng.uniform(np.log(lo), lm1))
+    if cfg.distance_prior == "uniform":
+        d = rng.uniform(d_lo, d_hi, n)
+    else:
+        d = (d_lo ** 3 + rng.uniform(0, 1, n)
+             * (d_hi ** 3 - d_lo ** 3)) ** (1.0 / 3.0)
+    cols = [
+        m1, m2, d,
+        rng.uniform(0, 2 * np.pi, n),
+        np.arcsin(rng.uniform(-1, 1, n)),
+        np.arccos(rng.uniform(-1, 1, n)),
+        rng.uniform(0, np.pi, n),
+        rng.uniform(0, 2 * np.pi, n),
+        rng.uniform(_T_OFF_LO, _T_OFF_HI, n),
+        rng.uniform(0, _SPIN1_HI[BBH], n),
+        rng.uniform(0, _SPIN2_HI[BBH], n)]
+    if cfg.precessing:
+        cols += [np.arccos(rng.uniform(-1, 1, n)),     # tilt_1
+                 np.arccos(rng.uniform(-1, 1, n)),     # tilt_2
+                 rng.uniform(0, 2 * np.pi, n),         # phi_12
+                 rng.uniform(0, 2 * np.pi, n)]         # phi_jl
+    return np.column_stack(cols).astype(np.float64)

@@ -5,7 +5,8 @@ A subprocess blocks those imports with a sys.meta_path finder, imports
 every module of posteriflow_torch (the trainer, its tools and the OOD
 fit included), loads the flagship release on the CPU, serves one request
 on raw strain, simulates a batch with the flagship's SimConfig, serves one
-request on an injection and takes one train step of the flagship's
+request on an injection, importance-corrects it through one tempered stage
+(the SMC sweep included) and takes one train step of the flagship's
 TrainConfig at batch 2. chip_smoke.py without a GPU exits non-zero, fast,
 with no result line. A scan of the sources checks what they import.
 """
@@ -63,10 +64,22 @@ meta = json.load(open("model_release/npe_r7_best/meta.json"))
 sim = sim_config_from_dict(meta["config"]["sim"])
 batch = simulate_batch(2, sim, device="cpu",
                        generator=torch.Generator().manual_seed(0))
-inj = infer(eng, inject=[dict(zip(PARAM_NAMES_PRECESSING,
-                                  [30.0, 25.0, 400.0, 1.0, 0.2, 0.5, 0.3,
-                                   1.0, 0.0, 0.4, 0.3, 1.0, 2.0, 0.5,
-                                   1.0]))], n_samples=32, seed=2)
+from posteriflow_torch.inference.importance import (
+    importance_correct, make_marginalized_log_likelihood)
+from posteriflow_torch.inference.preprocessing import prepare_simulated
+prep = prepare_simulated([dict(zip(PARAM_NAMES_PRECESSING,
+                                   [30.0, 25.0, 400.0, 1.0, 0.2, 0.5, 0.3,
+                                    1.0, 0.0, 0.4, 0.3, 1.0, 2.0, 0.5,
+                                    1.0]))], seed=2,
+                         param_names=PARAM_NAMES_PRECESSING, device="cpu")
+inj = infer(eng, data=prep, n_samples=32, seed=2)
+# one tempered stage: the device sweep runs once, on the CPU
+ctx = eng.encode(prep.strain[None], prep.asd_bands[None])
+isr = importance_correct(eng, ctx[0], 0, inj.samples, inj.log_prob,
+                         inj.railed, make_marginalized_log_likelihood(
+                             prep.strain, device="cpu"),
+                         marginalized=True, pad_block=32, min_ess_frac=1.0,
+                         max_stages=2)
 import dataclasses
 from posteriflow_torch.train.loop import _merge_params
 from posteriflow_torch.train.checkpoints import load_release
@@ -88,6 +101,9 @@ print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                   "inject": [list(inj.samples.shape),
                              bool(np.isfinite(inj.samples).all())],
                   "train": [bool(torch.isfinite(step["nll"])), state.step],
+                  "importance": [list(isr.samples.shape), isr.n_stages,
+                                 len(isr.mcmc_acceptance),
+                                 abs(float(isr.weights.sum()) - 1.0) < 1e-6],
                   "loaded": loaded}))
 """
 
@@ -117,13 +133,15 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
         "physics.waveforms.precession", "prior", "utils.precision",
         "tools.bench", "tools.bench_train", "tools.train_npe",
         "train.trainer", "train.diagnostics", "train.gates", "train.loop",
-        "utils.config")}
+        "utils.config", "inference.importance", "inference.dynesty_bridge",
+        "evaluation.metrics", "tools.infer")}
     assert expected <= set(out["modules"])
     assert out["shape"] == [64, 15] and out["finite"]
     assert out["verdict"] in ("HIGH", "MEDIUM", "LOW") and out["gate"]
     assert out["sim"] == [[2, 3, 16384], True]
     assert out["inject"] == [[32, 15], True]
     assert out["train"] == [True, 1]
+    assert out["importance"] == [[32, 15], 2, 1, True]
     assert out["loaded"] == []
 
 
