@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""On-card check of posteriflow_torch: serve, train and importance-correct
-the 15-D flagship release on one NVIDIA GPU through the hand-written CUDA
-RQS kernels (csrc/rqs.cu: rqs_tile, a TMA bulk-copy ring of row tiles, one
-thread per spline, the conditioner's derivative bias added in the kernel;
-rqs_grad, its backward, K lanes a spline).
+"""On-card check of posteriflow_torch: serve, train, importance-correct and
+decompose overlapping signals with the 15-D flagship release on one NVIDIA
+GPU through the hand-written CUDA RQS kernels (csrc/rqs.cu: rqs_tile, a
+TMA bulk-copy ring of row tiles, one thread per spline, the conditioner's
+derivative bias added in the kernel; rqs_grad, its backward, K lanes a
+spline).
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -16,8 +17,9 @@ Phases (any failure exits non-zero and prints no result line):
       instances must spill nothing.
   (b) the kernel against its plain PyTorch version on raw + bias at the
       flagship sampling shape (N = 131072 rows, D = 7, K = 16), at ragged
-      N (641, 5000: a part tile) and at importance sampling's 4096 rows,
-      both directions, with and without the bias, with tails beyond ±5: out
+      N (641, 5000: a part tile), at importance sampling's 4096 rows and
+      at the decompositions' 2048 and 8192 rows (phases r, s), both
+      directions, with and without the bias, with tails beyond ±5: out
       and logdet max |Δ| = 0.
   (c) serve 4 requests through `infer` (raw 32 s coloured Gaussian noise per
       detector from the design ASD, 5000 draws, ranks 0, 1, 0, 1); the
@@ -85,6 +87,34 @@ Phases (any failure exits non-zero and prints no result line):
       1e-3 nats. rqs_tile at 4096 rows timed beside its bound and the
       plain version; run_smc_prior on the same likelihood (n = 4096,
       stages capped at 10), which launches no spline.
+  (p) the released PriorityNets (priority_v7, priority_v5) on the card
+      against the CPU on one make_priority_batch batch (B = 32, dead
+      slots): scores, sigma and aux within 1e-4 of the largest live |score|
+      plus 1e-5, rank_by_score's order wherever scores differ by more, no
+      NaN, dead slots at -1e9.
+  (q) the overlap request: a 3-signal precessing injection (network SNRs
+      ~50, 22 and 14, mergers 0.9 s and more apart) through
+      infer_overlapping (3 ranks x 5000 draws; four warm calls, each rank's
+      encode and sampling times), rqs_tile launches exactly 30 a call and
+      no plain spline; rank_overlapping with priority_v7 on the card (its
+      split: segments, snr_est, net), whose top-1 must be the loudest
+      signal; tools/infer.py --inject --n-signals 3 writes rank0..2 and
+      ranking.json.
+  (r) AHSDPipeline.decompose on that event (max_signals 5, 2048 draws a
+      stage): each stage's fit SNR, alpha, quality and residual power
+      ratio, 10 rqs_tile launches a stage; the subtractor card against the
+      CPU on the same 512 draws (residual within 1e-4 of the strain's
+      largest |value|, alpha and fit SNR within 1e-4 relative).
+  (s) make_batched_decompose over 8 simulated events (1024 draws, 3
+      stages, templates of 128 draws): ms a call by CUDA events,
+      n_extracted, peak memory, 30 rqs_tile launches at 8192 rows; rqs_tile
+      inverse at 5000 and 8192 rows timed beside its bound.
+  (t) tools/priority_eval.py's battery at its defaults (20 x 32) on the
+      card: top-1, τ and the close-pair bin within ±0.05, ±0.05 and ±0.07
+      of reports/priority_eval_v7.json, beside the loudness fallback and
+      the oracle; fit_priority for 50 steps at batch 32 with the v7
+      architecture: finite losses, the last 10 below the first 10 on
+      average, steps/s.
   (e) the kernel table and the device as JSON lines; the last line is
       {"ok": true, "device": {...}}.
 Every time printed names the card and its power limit.
@@ -169,6 +199,51 @@ IS_SMC_STAGES, IS_REF_THETA, IS_SEED = 10, 64, 3
 IS_LL_TOL, IS_LOGQ_TOL = 1e-3, 1e-3
 TRAIN_NLL0 = (-8.0, -3.0)        # the release's Gaussian val_nll is -5.55
 FIT_STEPS, FIT_VAL_EVENTS = 5, 64
+# the overlap path, phases (p)-(t). PriorityNet card against CPU (p): the
+# released nets on one make_priority_batch batch at the evaluation config
+# (B = 32, up to 4 signals, dead slots), scores, sigma and aux within
+# PRIORITY_REL of the largest live |score| plus PRIORITY_ABS (as
+# tests/test_torch_priority_net.py holds the port to JAX)
+PRIORITY_RELEASES = ("model_release/priority_v7", "model_release/priority_v5")
+PRIORITY_BATCH, PRIORITY_SEED = 32, 11
+PRIORITY_REL, PRIORITY_ABS = 1e-4, 1e-5
+# (q)-(r): a 3-signal precessing injection (m1, m2, d, ra, dec, theta_jn,
+# psi, phase, t_c, a1, a2, tilt_1, tilt_2, phi_12, phi_jl). On the design
+# ASD its network SNRs are about 49.7, 21.7 and 13.5 (checked in the phase:
+# each pair differs by a factor of SNR_RATIO_MIN or more) and its mergers
+# lie 0.9 s and more apart (MERGER_GAP_MIN); the loudness order
+# (Mc^(5/6)/d), which ranks the flow's posteriors, is the SNR order
+OVERLAP = (
+    (35.0, 28.0, 500.0, 1.2, -0.4, 0.6, 0.9, 2.0, 0.05, 0.5, 0.3, 1.0, 2.1,
+     0.7, 3.0),
+    (22.0, 18.0, 700.0, 2.6, 0.5, 0.9, 1.7, 0.7, -0.85, 0.3, 0.6, 0.6, 1.4,
+     2.2, 1.1),
+    (14.0, 11.0, 1200.0, 4.1, 0.9, 0.4, 2.4, 4.4, 0.95, 0.2, 0.4, 2.0, 0.9,
+     4.1, 5.2))
+OVERLAP_SEED, OVERLAP_REPS = 5, 4
+SNR_RATIO_MIN, MERGER_GAP_MIN = 1.5, 0.5
+DECOMPOSE_MAX, DECOMPOSE_ROWS = 5, 2048    # AHSDPipeline's n_samples (r)
+# (r) again with every stage accepted (quality is clipped to [-1, 2]) and
+# a bias corrector of random weights from this seed, so that the card runs
+# all DECOMPOSE_MAX stages: the residual fed back and the corrector's branch
+FORCED_THRESHOLD, BIAS_SEED = -2.0, 17
+# the subtractor card vs CPU on the same draws: the residual within SUB_TOL
+# of the strain's largest |value|, alpha and fit SNR within SUB_TOL relative
+SUB_TOL = 1e-4
+# (s): make_batched_decompose over POD_EVENTS simulated events
+POD_EVENTS, POD_SAMPLES, POD_STAGES, POD_TEMPLATES = 8, 1024, 3, 128
+# (t): tools/priority_eval.py at its defaults (20 batches of 32, ~500
+# multi-signal scenarios) against reports/priority_eval_v7.json (the JAX
+# battery on 508 scenarios). The scenarios are fresh torch draws, so each
+# figure is an estimate with its own spread. One estimate's σ, binomial
+# for the accuracies, sd/√n for τ (sd 0.514 over 516 scenarios in a CPU
+# run of the battery): top-1 0.012 (0.917, 508 scenarios), the close-pair
+# bin [0, 0.1) 0.034 (0.713, 181 pairs), τ 0.023; the difference of two
+# such estimates has √2 that σ (0.017, 0.047, 0.032). So the bands, ±0.05,
+# ±0.07 and ±0.05, are 4.1σ, 2.1σ and 2.2σ of one estimate.
+EVAL_REF = {"top1": 0.917, "close": 0.713, "tau": 0.812}
+EVAL_BAND = {"top1": 0.05, "close": 0.07, "tau": 0.05}
+PRIORITY_FIT_STEPS, PRIORITY_FIT_BATCH = 50, 32
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -279,7 +354,8 @@ def phase_kernel_check(torch, plain, rqs_cuda, card):
     ragged N, both directions, with and without the bias."""
     errs = {}
     flagship = None
-    for n in (N_ROWS, *RAGGED_ROWS, IS_ROWS):
+    for n in (N_ROWS, *RAGGED_ROWS, IS_ROWS, DECOMPOSE_ROWS,
+              POD_EVENTS * POD_SAMPLES):
         x, raw, bias = spline_inputs(torch, n, seed=n)
         if n == N_ROWS:
             flagship = (x, raw, bias)
@@ -976,23 +1052,24 @@ def grad_host_us(torch, rqs_cuda, x, raw, g_out, g_ld, bias) -> dict:
     return out
 
 
-def forward_timing(torch, plain, rqs_cuda, x, raw, bias):
-    """rqs_tile<K, forward, bias> at x's row count: device time by the
-    profiler, CUDA events over back-to-back launches, the plain version's
-    time and the kernel's bound."""
+def forward_timing(torch, plain, rqs_cuda, x, raw, bias, inverse=False):
+    """rqs_tile<K, forward (or inverse), bias> at x's row count: device
+    time by the profiler, CUDA events over back-to-back launches, the plain
+    version's time and the kernel's bound."""
     n = x.shape[0]
     raw2 = raw.reshape(n, -1)
 
     def fn():
-        return rqs_cuda.KERNEL.launch(x, raw2, K_BINS, TAIL, False,
+        return rqs_cuda.KERNEL.launch(x, raw2, K_BINS, TAIL, inverse,
                                       bias=bias)
     nbytes = rqs_bytes(n, D_TR, K_BINS)
     nops = rqs_ops(n, D_TR, K_BINS)
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOPS
     biased = raw + bias
+    p_fn = plain.rqs_inverse if inverse else plain.rqs_forward
     return {"ms": kernel_device_ms(torch, fn, "rqs_tile"),
             "events_ms": cuda_time_ms(fn, reps=50),
-            "plain_ms": cuda_time_ms(lambda: plain.rqs_forward(
+            "plain_ms": cuda_time_ms(lambda: p_fn(
                 x, biased, K_BINS, TAIL), reps=5),
             "bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
@@ -1669,6 +1746,451 @@ def phase_importance(torch, plain, rqs_cuda, engine, engine_cls, state_dict,
             "peak_gib": peak}
 
 
+def phase_priority(torch, card):
+    """(p) the released PriorityNets on the card against the CPU on one
+    scenario batch with dead slots: scores, sigma, aux, the order, NaN."""
+    from posteriflow_torch.models.priority_net import rank_by_score
+    from posteriflow_torch.train.train_priority import (PriorityTrainConfig,
+                                                        load_priority_net,
+                                                        make_priority_batch)
+    cfg = dataclasses.replace(PriorityTrainConfig(),
+                              batch_size=PRIORITY_BATCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(PRIORITY_SEED)
+    segs, cand, mask, _, _, snr_est = make_priority_batch(cfg, gen, DEVICE)
+    live = (mask > 0).cpu()
+    n_dead = int((~live).sum())
+    check(n_dead > 0, "the priority batch has no dead slot")
+    out = {}
+    for rel in PRIORITY_RELEASES:
+        name = rel.rsplit("/", 1)[1]
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            net = load_priority_net(rel, device=dev)
+            args = [t.to(dev) for t in (segs, cand, mask)]
+            with torch.no_grad():
+                outs[dev] = [t.cpu() for t in net(
+                    *args, with_aux=True, snr_est=snr_est.to(dev))]
+            if dev == DEVICE:
+                with torch.no_grad():
+                    net_ms = cuda_time_ms(lambda: net(
+                        *args, snr_est=snr_est), reps=10)
+        (sg, qg, ag), (sc, qc, ac) = outs[DEVICE], outs["cpu"]
+        tol = PRIORITY_REL * float(sc[live].abs().max()) + PRIORITY_ABS
+        errs = {k: float((a - b).abs().max()) for k, a, b in (
+            ("score", sg, sc), ("sigma", qg, qc), ("aux", ag, ac))}
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in outs[DEVICE] + outs["cpu"])
+        # every pair of live slots whose CPU scores differ by more than
+        # tol keeps its order in rank_by_score of the card's scores
+        pos = torch.argsort(rank_by_score(sg, mask.cpu()), dim=-1)
+        must = (live[:, :, None] & live[:, None, :]
+                & (sc[:, :, None] - sc[:, None, :] > tol))
+        swapped = int((must & (pos[:, :, None] > pos[:, None, :])).sum())
+        dead_ok = bool((sg[~live] == -1e9).all())
+        print(f"(p) {name} card vs CPU, B={PRIORITY_BATCH} (live "
+              f"{int(live.sum())}, dead {n_dead}) [{card}]: max|Δ| score "
+              f"{errs['score']:.3e}, sigma {errs['sigma']:.3e}, aux "
+              f"{errs['aux']:.3e} (tol {tol:.3e}); ordered pairs apart by "
+              f"more than tol swapped {swapped} of {int(must.sum())}; all "
+              f"finite {finite}; dead slots -1e9 {dead_ok}; forward "
+              f"{net_ms:.3f} ms (CUDA events)")
+        check(all(e <= tol for e in errs.values()),
+              f"{name}: card vs CPU {errs} above {tol}")
+        check(swapped == 0 and finite and dead_ok, f"{name}: order, NaN "
+                                                   f"or dead slots")
+        out[name] = {"errs": errs, "tol": tol, "ms": net_ms}
+    return out
+
+
+def _overlap_truth(torch):
+    """The injection of (q)-(r) with its network SNRs, checked against
+    its stated properties."""
+    from posteriflow_torch.physics.simulator import (design_asd,
+                                                     signal_snr_amp_only)
+    from posteriflow_torch.prior import loudness
+    theta = torch.tensor(OVERLAP, device=DEVICE)
+    snr = signal_snr_amp_only(theta, design_asd(DEVICE)).cpu().numpy()
+    loud = loudness(theta[:, 0], theta[:, 1], theta[:, 2]).cpu().numpy()
+    t_c = theta[:, 8].cpu().numpy()
+    n = len(OVERLAP)
+    ratio = min(max(snr[i], snr[j]) / min(snr[i], snr[j])
+                for i in range(n) for j in range(i + 1, n))
+    gap = min(abs(t_c[i] - t_c[j]) for i in range(n) for j in range(i + 1,
+                                                                   n))
+    check(ratio >= SNR_RATIO_MIN and gap > MERGER_GAP_MIN
+          and list(np.argsort(-snr)) == list(np.argsort(-loud))
+          == list(range(n)), f"overlap injection: SNRs {snr}, loudness "
+                             f"{loud}, merger gap {gap}")
+    return snr, ratio, gap
+
+
+def ranking_split(torch, net, results, strain) -> dict:
+    """rank_overlapping's three steps run apart, host clock, the card
+    synchronized after each: the medians and segments on the host, the
+    SNR estimate of the medians and the net's forward on the card."""
+    from posteriflow_torch.inference.ranking import extract_segments
+    from posteriflow_torch.physics.simulator import (design_asd,
+                                                     signal_snr_amp_only)
+    t0 = time.perf_counter()
+    medians = np.stack([r.median() for r in results])
+    segs = extract_segments(strain, medians[:, 8])
+    t_seg = time.perf_counter()
+    with torch.no_grad():
+        med = torch.as_tensor(medians, dtype=torch.float32, device=DEVICE)
+        snr_est = signal_snr_amp_only(med, design_asd(DEVICE))[None]
+        torch.cuda.synchronize()
+        t_snr = time.perf_counter()
+        scores, _sigma = net(torch.as_tensor(segs, device=DEVICE)[None],
+                             med[None], torch.ones((1, len(results)),
+                                                   device=DEVICE),
+                             snr_est=snr_est)
+        scores.cpu()
+    t_net = time.perf_counter()
+    return {"segments": t_seg - t0, "snr_est": t_snr - t_seg,
+            "net": t_net - t_snr}
+
+
+def phase_overlap(torch, plain, rqs_cuda, engine, cfg, card):
+    """(q) infer_overlapping on the 3-signal injection (3 ranks of
+    N_SAMPLES draws), timed warm; rank_overlapping with priority_v7 on the
+    card; tools/infer.py --inject --n-signals 3."""
+    import tempfile
+    from pathlib import Path
+
+    from posteriflow_torch.inference.pipeline import infer_overlapping
+    from posteriflow_torch.inference.preprocessing import prepare_simulated
+    from posteriflow_torch.inference.ranking import rank_overlapping
+    from posteriflow_torch.tools import infer as infer_cli
+    from posteriflow_torch.train.train_priority import load_priority_net
+    t_phase = time.perf_counter()
+    snr, ratio, gap = _overlap_truth(torch)
+    n_sig, layers = len(OVERLAP), engine.cfg.flow_layers
+    prep = prepare_simulated(np.asarray(OVERLAP, np.float32),
+                             seed=OVERLAP_SEED, psd_bands=cfg.psd_bands,
+                             param_names=cfg.param_names, device=DEVICE)
+    kw = dict(data=prep, n_signals=n_sig, n_samples=N_SAMPLES,
+              seed=OVERLAP_SEED)
+    infer_overlapping(engine, **kw)                           # warm
+    counts, restore = _count_plain(torch, plain)
+    walls, launches = [], []
+    try:
+        for _ in range(OVERLAP_REPS):
+            rqs_cuda.KERNEL.launches = 0
+            t0 = time.perf_counter()
+            results = infer_overlapping(engine, **kw)
+            walls.append(time.perf_counter() - t0)
+            launches.append(rqs_cuda.KERNEL.launches)
+            rt = [r.diagnostics["runtime"] for r in results]
+            print(f"(q) infer_overlapping, {n_sig} ranks x {N_SAMPLES} "
+                  f"draws [{card}]: {walls[-1] * 1e3:.1f} ms wall; per rank"
+                  f" encode / sampling ms "
+                  + ", ".join(f"{x['encode'] * 1e3:.1f} / "
+                              f"{x['sampling'] * 1e3:.1f}" for x in rt)
+                  + f"; rqs_tile launches {launches[-1]}")
+    finally:
+        restore()
+    check(launches == [n_sig * layers] * OVERLAP_REPS,
+          f"overlap request launched rqs_tile {launches} times, expected "
+          f"{n_sig * layers} a call")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"the plain spline ran on the overlap path: {counts}")
+    for r, res in enumerate(results):
+        check(res.samples.shape == (N_SAMPLES, engine.cfg.n_params)
+              and bool(np.isfinite(res.samples).all()), f"rank {r} samples")
+    med = np.stack([r.median() for r in results])
+
+    net = load_priority_net(PRIORITY_RELEASES[0], device=DEVICE)
+    rank_overlapping(results, prep.strain, priority_model=net,
+                     device=DEVICE)                           # warm
+    t0 = time.perf_counter()
+    order, scores = rank_overlapping(results, prep.strain,
+                                     priority_model=net, device=DEVICE)
+    rank_s = time.perf_counter() - t0
+    split = ranking_split(torch, net, results, prep.strain)
+    loudest = int(np.argmax(snr))
+    print(f"(q) injection network SNRs {np.round(snr, 2).tolist()} (pairwise"
+          f" ratio >= {ratio:.2f}), mergers {[o[8] for o in OVERLAP]} s "
+          f"(apart by >= {gap:.2f} s); rank medians m1 "
+          f"{np.round(med[:, 0], 2).tolist()}, d "
+          f"{np.round(med[:, 2], 1).tolist()}, t_c "
+          f"{np.round(med[:, 8], 3).tolist()}")
+    print(f"(q) rank_overlapping with priority_v7 [{card}]: order {order}, "
+          f"scores {[round(s, 4) for s in scores]}; {rank_s * 1e3:.2f} ms "
+          f"(segments {split['segments'] * 1e3:.2f}, snr_est "
+          f"{split['snr_est'] * 1e3:.2f}, net {split['net'] * 1e3:.2f}); "
+          f"k-rank wall (infer_overlapping, {n_sig} ranks) median "
+          f"{np.median(walls) * 1e3:.1f} ms of {OVERLAP_REPS}, with the "
+          f"ranking {(np.median(walls) + rank_s) * 1e3:.1f} ms")
+    check(sorted(order) == list(range(n_sig))
+          and all(math.isfinite(s) for s in scores), "ranking output")
+    check(order[0] == loudest, f"top-1 {order[0]} is not the loudest "
+                               f"signal by network SNR ({loudest})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rqs_cuda.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        infer_cli.main(["--ckpt", RELEASE, "--inject", "--n-signals",
+                        str(n_sig), "--n-samples", str(N_SAMPLES), "--seed",
+                        str(OVERLAP_SEED), "--device", DEVICE, "--out", tmp])
+        cli_s = time.perf_counter() - t0
+        cli_launches = rqs_cuda.KERNEL.launches
+        ranking = json.loads((Path(tmp) / "ranking.json").read_text())
+        shapes = [np.load(Path(tmp) / f"rank{r}" / "samples.npy").shape
+                  for r in range(n_sig)]
+    print(f"(q) tools/infer.py --inject --n-signals {n_sig} [{card}]: "
+          f"{cli_s:.3f} s; ranking.json {ranking}; rank dirs {shapes}; "
+          f"rqs_tile launches {cli_launches}")
+    check(sorted(ranking["order"]) == list(range(n_sig))
+          and len(ranking["scores"]) == n_sig
+          and all(math.isfinite(s) for s in ranking["scores"])
+          and shapes == [(N_SAMPLES, engine.cfg.n_params)] * n_sig
+          and cli_launches == n_sig * layers, "tools/infer.py --n-signals")
+    print(f"(q) phase done in {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
+    return {"launches": launches[0], "walls": walls, "rank_s": rank_s,
+            "split": split, "order": order, "prep": prep}
+
+
+def phase_decompose(torch, plain, rqs_cuda, engine, prep, card):
+    """(r) AHSDPipeline.decompose on the (q) event; the subtractor card
+    against the CPU on the same draws."""
+    from posteriflow_torch.core.bias_corrector import BiasCorrector
+    from posteriflow_torch.core.pipeline import TEMPLATE_DRAWS, AHSDPipeline
+    from posteriflow_torch.core.subtractor import AdaptiveSubtractor
+    from posteriflow_torch.inference.pipeline import infer
+    layers = engine.cfg.flow_layers
+    pipe = AHSDPipeline(engine, max_signals=DECOMPOSE_MAX,
+                        n_samples=DECOMPOSE_ROWS)
+    pipe.decompose(prep, seed=OVERLAP_SEED)                    # warm
+    counts, restore = _count_plain(torch, plain)
+    try:
+        rqs_cuda.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        out = pipe.decompose(prep, seed=OVERLAP_SEED)
+        wall = time.perf_counter() - t0
+        launches = rqs_cuda.KERNEL.launches
+    finally:
+        restore()
+    n_st = len(out["stages"])
+    for st in out["stages"]:
+        print(f"(r) stage {st['stage']}: fit SNR {st['fit_snr']:.3f}, alpha "
+              f"{st['alpha']:.4f}, quality {st['quality']:.4f}, template SNR"
+              f" {st['template_snr']:.3f}, residual power ratio "
+              f"{st['residual_power_ratio']:.6f}, accepted {st['accepted']}")
+    print(f"(r) AHSDPipeline.decompose, max_signals {DECOMPOSE_MAX}, "
+          f"{pipe.n_samples} draws a stage [{card}]: n_extracted "
+          f"{out['n_extracted']} in {n_st} stages, {wall:.3f} s wall "
+          f"({wall / n_st * 1e3:.1f} ms a stage); rqs_tile launches "
+          f"{launches} (expected {layers * n_st}), plain spline calls "
+          f"{counts}")
+    check(launches == layers * n_st, f"decompose launched rqs_tile "
+                                     f"{launches} times for {n_st} stages")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"the plain spline ran in the decomposition: {counts}")
+    check(all(math.isfinite(st[k]) for st in out["stages"]
+              for k in ("fit_snr", "alpha", "quality",
+                        "residual_power_ratio")), "stage statistics")
+
+
+    corrector = BiasCorrector(scaler=engine.scaler, device=DEVICE)
+    corrector.init(torch.Generator().manual_seed(BIAS_SEED))
+    forced = AHSDPipeline(engine, bias_corrector=corrector,
+                          max_signals=DECOMPOSE_MAX,
+                          quality_threshold=FORCED_THRESHOLD,
+                          n_samples=DECOMPOSE_ROWS)
+    counts, restore = _count_plain(torch, plain)
+    try:
+        rqs_cuda.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        all_out = forced.decompose(prep, seed=OVERLAP_SEED)
+        all_wall = time.perf_counter() - t0
+        all_launches = rqs_cuda.KERNEL.launches
+    finally:
+        restore()
+    corrected = [bool(r.diagnostics.get("bias_corrected"))
+                 for r in all_out["results"]]
+    for st in all_out["stages"]:
+        print(f"(r) every stage accepted, stage {st['stage']}: fit SNR "
+              f"{st['fit_snr']:.3f}, alpha {st['alpha']:.4f}, quality "
+              f"{st['quality']:.4f}, residual power ratio "
+              f"{st['residual_power_ratio']:.6f}")
+    print(f"(r) AHSDPipeline.decompose, quality threshold "
+          f"{FORCED_THRESHOLD:g}, a bias corrector of random weights (seed "
+          f"{BIAS_SEED}) [{card}]: n_extracted {all_out['n_extracted']}, "
+          f"bias corrected by stage {corrected}, {all_wall:.3f} s wall "
+          f"({all_wall / DECOMPOSE_MAX * 1e3:.1f} ms a stage); rqs_tile "
+          f"launches {all_launches} (expected {layers * DECOMPOSE_MAX}), "
+          f"plain spline calls {counts}")
+    check(all_out["n_extracted"] == DECOMPOSE_MAX
+          and len(all_out["stages"]) == DECOMPOSE_MAX,
+          f"forced decompose ran {len(all_out['stages'])} stages")
+    check(all_launches == layers * DECOMPOSE_MAX,
+          f"forced decompose launched rqs_tile {all_launches} times")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"the plain spline ran in the forced decomposition: {counts}")
+    check(corrected == [False] + [True] * (DECOMPOSE_MAX - 1),
+          f"the bias corrector ran at stages {corrected}")
+    check(all(math.isfinite(st[k]) for st in all_out["stages"]
+              for k in ("fit_snr", "alpha", "quality",
+                        "residual_power_ratio"))
+          and all(bool(np.isfinite(r.samples).all())
+                  for r in all_out["results"]), "forced stage statistics")
+
+    draws = infer(engine, data=prep, n_samples=pipe.n_samples,
+                  seed=OVERLAP_SEED).samples[:TEMPLATE_DRAWS]
+    got = AdaptiveSubtractor(device=DEVICE).subtract(prep.strain, draws)
+    t0 = time.perf_counter()
+    ref = AdaptiveSubtractor(device="cpu").subtract(prep.strain, draws)
+    cpu_s = time.perf_counter() - t0
+    sub_ms = cuda_time_ms(lambda: AdaptiveSubtractor(
+        device=DEVICE).subtract(prep.strain, draws), reps=3)
+    peak = float(np.abs(prep.strain).max())
+    d_res = float(np.abs(got["residual"] - ref["residual"]).max()) / peak
+    d_alpha = abs(got["alpha"] - ref["alpha"]) / abs(ref["alpha"])
+    d_fit = abs(got["fit_snr"] - ref["fit_snr"]) / abs(ref["fit_snr"])
+    print(f"(r) AdaptiveSubtractor card vs CPU on {len(draws)} draws "
+          f"[{card}]: max|Δresidual| / max|strain| {d_res:.3e}, alpha "
+          f"{d_alpha:.3e}, fit SNR {d_fit:.3e} relative (tol {SUB_TOL:g}); "
+          f"alpha {got['alpha']:.4f}, fit SNR {got['fit_snr']:.3f}, quality"
+          f" {got['quality']:.4f}; {sub_ms:.2f} ms on the card (CUDA "
+          f"events), {cpu_s:.3f} s on the CPU")
+    check(d_res <= SUB_TOL and d_alpha <= SUB_TOL and d_fit <= SUB_TOL,
+          "subtractor card vs CPU")
+    return {"launches": launches, "stages": n_st, "wall": wall,
+            "n_extracted": out["n_extracted"], "sub_ms": sub_ms,
+            "forced_launches": all_launches, "forced_wall": all_wall}
+
+
+def phase_batched_decompose(torch, plain, rqs_cuda, engine, train_cfg,
+                            sim_cfg, card):
+    """(s) make_batched_decompose over POD_EVENTS simulated events; the
+    spline kernel at the overlap paths' row counts."""
+    from posteriflow_torch.core.pod import make_batched_decompose
+    from posteriflow_torch.physics.simulator import simulate_batch
+    layers = engine.cfg.flow_layers
+    gen = torch.Generator(device=DEVICE).manual_seed(OVERLAP_SEED)
+    ev = simulate_batch(POD_EVENTS, sim_cfg, device=DEVICE, generator=gen)
+    decompose = make_batched_decompose(
+        train_cfg, n_samples=POD_SAMPLES, max_stages=POD_STAGES,
+        n_template_draws=POD_TEMPLATES)
+
+    def run():
+        return decompose(engine.model, ev.strain, ev.asd_bands,
+                         generator=gen)
+    run()                                                     # warm
+    rows = []
+    launch = rqs_cuda.KERNEL.launch
+
+    def recording(x, *a, **k):
+        rows.append(int(x.shape[0]))
+        return launch(x, *a, **k)
+    counts, restore = _count_plain(torch, plain)
+    rqs_cuda.KERNEL.launch = recording
+    try:
+        rqs_cuda.KERNEL.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        launches = rqs_cuda.KERNEL.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        rqs_cuda.KERNEL.launch = launch
+        restore()
+    call_ms = cuda_time_ms(run, reps=3, warmup=0)
+    expected = POD_STAGES * layers
+    print(f"(s) batched decompose, {POD_EVENTS} events (n_sig "
+          f"{ev.n_sig.tolist()}) x {POD_SAMPLES} draws, {POD_STAGES} "
+          f"stages, templates of {POD_TEMPLATES} draws [{card}]: "
+          f"{call_ms:.2f} ms a call (CUDA events, 3 calls); n_extracted "
+          f"{out['n_extracted'].tolist()}; quality by stage "
+          f"{np.round(out['quality'].cpu().numpy(), 3).tolist()}; peak "
+          f"memory {peak:.2f} GiB; rqs_tile launches {launches} (expected "
+          f"{expected}) at rows {sorted(set(rows))}; plain spline calls "
+          f"{counts}")
+    check(launches == expected and rows == [POD_EVENTS * POD_SAMPLES]
+          * expected, f"batched decompose: {launches} launches at {rows}")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"the plain spline ran in the batched decomposition: {counts}")
+    check(bool(torch.isfinite(out["median"]).all()
+               and torch.isfinite(out["final_residual"]).all()),
+          "batched decompose output")
+    timing = {}
+    for n in (N_SAMPLES, POD_EVENTS * POD_SAMPLES):
+        x, raw, bias = spline_inputs(torch, n, seed=n + 2)
+        timing[n] = forward_timing(torch, plain, rqs_cuda, x, raw, bias,
+                                   inverse=True)
+        t = timing[n]
+        print(f"(s) rqs_tile<{K_BINS}, inverse, bias> N={n} D={D_TR} "
+              f"[{card}]: device time a launch "
+              + ("not measured" if t["ms"] is None
+                 else f"{t['ms'] * 1e3:.2f} us")
+              + f" (profiler), {t['events_ms'] * 1e3:.2f} us by CUDA events"
+              f" over back-to-back launches, plain {t['plain_ms'] * 1e3:.1f}"
+              f" us; bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: "
+              f"{rqs_bytes(n, D_TR, K_BINS)} B at 3.35 TB/s: x, raw and the "
+              f"bias read, out and logdet written)")
+    return {"launches": launches, "call_ms": call_ms, "peak_gib": peak,
+            "n_extracted": out["n_extracted"].tolist(), "timing": timing}
+
+
+def phase_priority_quality(torch, card):
+    """(t) the evaluation battery at its defaults on the card against the
+    JAX report's figures; then fit_priority at the v7 architecture."""
+    import tempfile
+
+    from posteriflow_torch.tools import priority_eval
+    from posteriflow_torch.train.train_priority import (PriorityTrainConfig,
+                                                        fit_priority,
+                                                        load_priority_net)
+    net = load_priority_net(PRIORITY_RELEASES[0], device=DEVICE)
+    t0 = time.perf_counter()
+    rep = priority_eval.evaluate(net, device=DEVICE)
+    eval_s = time.perf_counter() - t0
+    got = {"top1": rep["top1"], "tau": rep["kendall_tau"],
+           "close": rep["pairwise_acc_by_target_sep"]["[0.0,0.1)"]}
+    n, n_close = rep["n_scenarios"], rep["pairs_by_target_sep"]["[0.0,0.1)"]
+    sigma = {"top1": math.sqrt(got["top1"] * (1 - got["top1"]) / n),
+             "close": math.sqrt(got["close"] * (1 - got["close"]) / n_close),
+             "tau": rep["kendall_tau_sd"] / math.sqrt(n)}
+    print(f"(t) priority_eval, priority_v7, {n} scenarios [{card}]: "
+          f"{eval_s:.2f} s; "
+          + "; ".join(f"{k} {got[k]:.4f} (JAX report {EVAL_REF[k]}, band "
+                      f"±{EVAL_BAND[k]}, this estimate's σ {sigma[k]:.4f})"
+                      for k in ("top1", "tau", "close"))
+          + f" ({n_close} close pairs); fallback top-1 "
+          f"{rep['fallback_top1']:.4f}, τ {rep['fallback_kendall_tau']:.4f};"
+          f" oracle top-1 {rep['oracle_top1']:.4f}, close pairs "
+          f"{rep['oracle_pairwise_acc_by_target_sep']['[0.0,0.1)']:.4f}; "
+          f"rank-uncertainty corr {rep['uncertainty_error_corr']:.4f}")
+    for k in got:
+        check(abs(got[k] - EVAL_REF[k]) <= EVAL_BAND[k],
+              f"priority_eval {k} {got[k]} outside {EVAL_REF[k]} ± "
+              f"{EVAL_BAND[k]}")
+
+    cfg = PriorityTrainConfig(batch_size=PRIORITY_FIT_BATCH, use_dt=True,
+                              residual_snr=True, close_boost=2.0,
+                              mine_pool=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _, hist = fit_priority(tmp, cfg, steps=PRIORITY_FIT_STEPS,
+                               eval_every=1, device=DEVICE)
+        fit_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    rate = PRIORITY_FIT_STEPS / fit_s
+    print(f"(t) fit_priority, v7 architecture (use_dt, residual_snr, close "
+          f"boost 2, mine_pool 2), batch {PRIORITY_FIT_BATCH}, "
+          f"{PRIORITY_FIT_STEPS} steps [{card}]: {fit_s:.2f} s, "
+          f"{rate:.2f} steps/s (each with its evaluation batch: "
+          f"eval_every 1); loss first-10 mean {first:.4f}, last-10 mean "
+          f"{last:.4f}; top-1 at the end {hist[-1]['top1_acc']:.3f}")
+    check(all(math.isfinite(v) for v in losses) and last < first,
+          f"fit_priority: losses {losses}")
+    return {"eval": got, "sigma": sigma, "eval_s": eval_s,
+            "steps_per_s": rate}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1733,6 +2255,16 @@ def main() -> int:
         fitted = phase_fit(torch, rqs_cuda, train_cfg, card)
         imp = phase_importance(torch, plain, rqs_cuda, engine,
                                InferenceEngine, state_dict, cfg, card)
+        t0 = time.perf_counter()
+        priority = phase_priority(torch, card)
+        overlap = phase_overlap(torch, plain, rqs_cuda, engine, cfg, card)
+        decomp = phase_decompose(torch, plain, rqs_cuda, engine,
+                                 overlap["prep"], card)
+        pod = phase_batched_decompose(torch, plain, rqs_cuda, engine,
+                                      train_cfg, sim_cfg, card)
+        quality = phase_priority_quality(torch, card)
+        print(f"(p)-(t) overlap phases done in "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1752,7 +2284,14 @@ def main() -> int:
                                  train["launches"][0],
                              "fit 2 epochs + resume 1 (n)":
                                  fitted["launches"][0],
-                             "importance correction (o)": imp["launches"]},
+                             "importance correction (o)": imp["launches"],
+                             f"overlap request, {len(OVERLAP)} ranks x "
+                             f"{N_SAMPLES} rows (q)": overlap["launches"],
+                             f"AHSDPipeline.decompose, {decomp['stages']} "
+                             f"stages x 2048 rows (r)": decomp["launches"],
+                             f"batched decompose, {POD_STAGES} stages x "
+                             f"{POD_EVENTS * POD_SAMPLES} rows (s)":
+                                 pod["launches"]},
         "max_abs_err": max(errs["inverse"][0], errs["forward"][0]),
         "max_abs_err_logdet": max(errs["inverse"][1], errs["forward"][1]),
         "ms": k_ms, "plain_ms": p_ms,
@@ -1762,6 +2301,9 @@ def main() -> int:
         "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
         f"rows_{TRAIN_ROWS}_forward_bias": grad["forward_train"],
         f"rows_{IS_ROWS}_forward_bias": imp["forward"],
+        f"rows_{N_SAMPLES}": pod["timing"][N_SAMPLES],
+        f"rows_{POD_EVENTS * POD_SAMPLES}":
+            pod["timing"][POD_EVENTS * POD_SAMPLES],
         "library_ms": None,
     }, {
         "name": "rqs_grad<16, bias> (RQS spline backward, training)",
@@ -1795,7 +2337,13 @@ def main() -> int:
           f"{train['steps_per_s']:.3f} steps/s, {train['events_per_s']:.1f} "
           f"events/s at batch {train_cfg.batch_size}; importance "
           f"correction {imp['seconds']:.3f} s (peak {imp['peak_gib']:.2f} "
-          f"GiB)")
+          f"GiB); overlap request (3 ranks) "
+          f"{np.median(overlap['walls']) * 1e3:.1f} ms + ranking "
+          f"{overlap['rank_s'] * 1e3:.2f} ms; decompose "
+          f"{decomp['wall'] / decomp['stages'] * 1e3:.1f} ms a stage; "
+          f"batched decompose {pod['call_ms']:.1f} ms a call; priority_eval "
+          f"top-1 {quality['eval']['top1']:.4f}, close pairs "
+          f"{quality['eval']['close']:.4f}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

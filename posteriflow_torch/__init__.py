@@ -11,9 +11,13 @@ gate -> `PosteriorResult`.
 
     posteriflow_torch.physics    constants and the numpy design PSDs
     posteriflow_torch.ops        RQS: plain PyTorch version + CUDA kernel
-    posteriflow_torch.models     encoder, flow, LeanNPE (nn.Modules)
-    posteriflow_torch.train      release loader (flax msgpack -> state_dict)
-    posteriflow_torch.inference  prepare_real, infer(), OOD, gating, result
+    posteriflow_torch.models     encoder, flow, LeanNPE, PriorityNet
+    posteriflow_torch.train      release loader (flax msgpack -> state_dict),
+                                 the NPE and PriorityNet trainers
+    posteriflow_torch.inference  prepare_real, infer(), OOD, gating, result,
+                                 importance sampling, overlap ranking
+    posteriflow_torch.core       subtract-and-reinfer decomposition
+    posteriflow_torch.evaluation anchor metrics, decomposition baselines
 
 The package imports torch, numpy and scipy only, so it runs on a machine
 that has none of the JAX stack.

@@ -1,1 +1,2 @@
-"""Evaluation metrics (the part the anchor comparison needs so far)."""
+"""Evaluation: the anchor comparison's metrics and the overlap
+decomposition's baselines."""

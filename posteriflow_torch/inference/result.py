@@ -46,8 +46,7 @@ class PosteriorResult:
         return self.weights / self.weights.sum()
 
     def median(self) -> np.ndarray:
-        return np.asarray([self.quantile(0.5)[i]
-                           for i in range(len(self.param_names))])
+        return self.quantile(0.5)[:len(self.param_names)]
 
     def mean(self) -> np.ndarray:
         return (self.samples * self._w()[:, None]).sum(axis=0)

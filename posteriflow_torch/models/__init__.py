@@ -1,3 +1,3 @@
-"""Encoder, coupling flow and LeanNPE as torch nn.Modules, named after the
-flax modules of posteriflow_tpu/models so that released weights map one to
-one (train/checkpoints.py)."""
+"""Encoder, coupling flow, LeanNPE and PriorityNet as torch nn.Modules,
+named after the flax modules of posteriflow_tpu/models so that released
+weights map one to one (train/checkpoints.py)."""

@@ -75,8 +75,11 @@ class ConvStem(nn.Module):
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """flax MultiHeadDotProductAttention (no mask, no dropout): q/k/v/out
-    projections are flax DenseGeneral kernels carried into nn.Linear."""
+    """flax MultiHeadDotProductAttention (no dropout): q/k/v/out
+    projections are flax DenseGeneral kernels carried into nn.Linear. A
+    boolean `mask` [B, 1, Lq, Lk] sets the logits it excludes to the
+    dtype's most negative finite value, as flax does (not -inf): a query
+    whose keys are all masked then attends uniformly and stays finite."""
 
     def __init__(self, d_model: int, n_heads: int,
                  dtype: torch.dtype = torch.float32):
@@ -88,8 +91,8 @@ class MultiHeadDotProductAttention(nn.Module):
         self.value = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
 
-    def forward(self, inputs_q: torch.Tensor,
-                inputs_kv: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs_q: torch.Tensor, inputs_kv: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = self.dtype
         b, lq, dm = inputs_q.shape
         lk = inputs_kv.shape[1]
@@ -99,6 +102,8 @@ class MultiHeadDotProductAttention(nn.Module):
         v = dense(self.value, inputs_kv, dt).view(b, lk, self.n_heads, hd)
         q = q / in_dtype(math.sqrt(hd), dt)  # query / sqrt(depth) in dt
         w = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if mask is not None:
+            w = torch.where(mask, w, torch.finfo(w.dtype).min)
         # jax.nn.softmax in the compute dtype: exp and the division each
         # round to that dtype (torch.softmax would round once)
         w = torch.exp(w - torch.amax(w, dim=-1, keepdim=True))

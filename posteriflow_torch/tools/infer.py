@@ -1,6 +1,6 @@
 """Amortized inference from the command line, with the importance
-correction (the port's twin of the repository's infer.py, for the paths
-the port serves).
+correction and overlap ranking (the port's twin of the repository's
+infer.py, for the paths the port serves).
 
     python -m posteriflow_torch.tools.infer --ckpt model_release/npe_r7_best \\
         --inject --n-samples 5000 --importance --out results/inj
@@ -8,20 +8,24 @@ the port serves).
         --strain strain.npy --gps 1369224018 --out results/ev
     python -m posteriflow_torch.tools.infer --ckpt RELEASE --inject \\
         --device cpu --n-samples 64 --out /tmp/inj
+    python -m posteriflow_torch.tools.infer --ckpt model_release/npe_r7_best \\
+        --inject --n-signals 3 --out results/overlap
 
 Sources: --strain (one .npy [3, T] or one file per detector, named
 H1_*.npy, L1_*.npy, V1_*.npy) with --gps and optionally --asd; or --inject,
 a fresh injection through the simulator, at --inject-params (a JSON list
-of parameter dicts, or a file holding one) or at a draw from the
-checkpoint's own prior (15-D releases get precessing draws) from a
+of parameter dicts, or a file holding one) or at --n-signals draws from
+the checkpoint's own prior (15-D releases get precessing draws) from a
 torch.Generator seeded with --seed. --importance corrects the draws
 against the phase/time-marginalized Whittle likelihood and saves the
-normalized weights beside the samples (weights.npy). Everything runs on
---device (default cuda).
+normalized weights beside the samples (weights.npy). --n-signals > 1
+infers one posterior per rank (saved as rank0, rank1, ...), orders them
+with the released PriorityNet (or the loudness fallback when none is
+present) and writes ranking.json with the order and the scores.
+Everything runs on --device (default cuda).
 
 Not ported yet, and refused with the ROADMAP item that will bring them:
---event (the GWOSC fetch), --plots (the corner and marginal plots),
---n-signals > 1 (overlap ranking).
+--event (the GWOSC fetch), --plots (the corner and marginal plots).
 """
 
 from __future__ import annotations
@@ -37,8 +41,6 @@ _NOT_PORTED = {
                "(fetch_gwosc)",
     "--plots": "the corner and marginal plots are ROADMAP §1 item 7 "
                "(plot_corner / plot_marginals)",
-    "--n-signals > 1": "overlap inference needs its ranking, ROADMAP §1 "
-                       "item 5 (inference/ranking.py)",
 }
 
 
@@ -85,8 +87,8 @@ def _asd_override(specs):
 
 
 def _injection(args, engine):
-    """The injection's parameter dicts: --inject-params, or one draw from
-    the checkpoint's prior."""
+    """The injection's parameter dicts: --inject-params, or --n-signals
+    draws from the checkpoint's prior."""
     if args.inject_params:
         raw = args.inject_params
         txt = Path(raw).read_text() if Path(raw).exists() else raw
@@ -96,17 +98,38 @@ def _injection(args, engine):
     from posteriflow_torch.prior import PriorConfig, sample_signal_params
     names = tuple(engine.cfg.param_names)
     gen = torch.Generator(device=engine.device).manual_seed(args.seed)
-    draw = sample_signal_params((1,), PriorConfig(precessing=len(names)
-                                                  >= 15),
-                                generator=gen, device=engine.device)
-    return [dict(zip(names, map(float, draw[0].cpu().numpy())))]
+    draws = sample_signal_params((args.n_signals,),
+                                 PriorConfig(precessing=len(names) >= 15),
+                                 generator=gen, device=engine.device)
+    return [dict(zip(names, map(float, d))) for d in draws.cpu().numpy()]
+
+
+def _overlapping(args, engine, prepared):
+    """One posterior per rank, their extraction order, saved as rank{r}/
+    and ranking.json."""
+    from posteriflow_torch.inference.pipeline import infer_overlapping
+    from posteriflow_torch.inference.ranking import rank_overlapping
+    results = infer_overlapping(engine, data=prepared,
+                                n_signals=args.n_signals,
+                                n_samples=args.n_samples, seed=args.seed)
+    order, scores = rank_overlapping(results, prepared.strain,
+                                     device=engine.device)
+    print(f"extraction order: {order} (scores "
+          f"{[round(s, 4) for s in scores]})")
+    out = Path(args.out)
+    for r, res in enumerate(results):
+        print(res.summary())
+        res.save(out / f"rank{r}")
+    (out / "ranking.json").write_text(json.dumps({"order": order,
+                                                  "scores": scores}))
+    print(f"saved -> {out}")
+    return results
 
 
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
-    asked = {"--event": args.event is not None, "--plots": args.plots,
-             "--n-signals > 1": args.n_signals > 1}
+    asked = {"--event": args.event is not None, "--plots": args.plots}
     for flag, given in asked.items():
         if given:
             ap.error(f"{flag} is not ported yet: {_NOT_PORTED[flag]}")
@@ -139,6 +162,9 @@ def main(argv=None):
             strain_by_det, gps_time=args.gps or 0.0,
             psd_bands=engine.cfg.psd_bands,
             asd_by_det=_asd_override(args.asd) if args.asd else None)
+
+    if args.n_signals > 1:
+        return _overlapping(args, engine, prepared)
 
     res = infer(engine, data=prepared, rank=args.rank,
                 n_samples=args.n_samples, seed=args.seed)

@@ -1,1 +1,1 @@
-"""Release loading for the port (training arrives in a later slice)."""
+"""Release loading, the NPE trainer and the PriorityNet trainer."""

@@ -110,22 +110,30 @@ def init_params(model: LeanNPE,
     return model
 
 
+def warmup_cosine(count: int, peak: float, warmup: int, decay_steps: int,
+                  end_value: float) -> float:
+    """optax.warmup_cosine_decay_schedule(0, peak, warmup, decay_steps,
+    end_value) at `count`: linear from 0 over the warmup, then a cosine down
+    to end_value over the remaining decay_steps - warmup counts."""
+    decay = decay_steps - warmup
+    if decay <= 0:
+        raise ValueError(f"decay_steps ({decay_steps}) must exceed the "
+                         f"warmup ({warmup})")
+    if count < warmup:
+        frac = 1.0 - min(max(count, 0), warmup) / warmup
+        return (0.0 - peak) * frac + peak
+    alpha = 0.0 if peak == 0.0 else end_value / peak
+    c = min(count - warmup, decay)
+    cosine = 0.5 * (1.0 + math.cos(math.pi * c / decay))
+    return peak * ((1.0 - alpha) * cosine + alpha)
+
+
 def learning_rate(cfg: TrainConfig, count: int) -> float:
     """optax.warmup_cosine_decay_schedule(0, lr, warmup_steps, total_steps,
     0.01·lr) at `count`: linear from 0 over the warmup, then cosine down to
     the 1% floor."""
-    peak, warm = cfg.lr, cfg.warmup_steps
-    decay = cfg.total_steps - warm
-    if decay <= 0:
-        raise ValueError(f"total_steps ({cfg.total_steps}) must exceed "
-                         f"warmup_steps ({warm})")
-    if count < warm:
-        frac = 1.0 - min(max(count, 0), warm) / warm
-        return (0.0 - peak) * frac + peak
-    alpha = 0.0 if peak == 0.0 else 0.01
-    c = min(count - warm, decay)
-    cosine = 0.5 * (1.0 + math.cos(math.pi * c / decay))
-    return peak * ((1.0 - alpha) * cosine + alpha)
+    return warmup_cosine(count, cfg.lr, cfg.warmup_steps, cfg.total_steps,
+                         0.01 * cfg.lr)
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -145,6 +153,28 @@ def _unitwise_norm(a: torch.Tensor) -> torch.Tensor:
             a.shape)
     raise ValueError(f"no unit-wise norm for a leaf of shape "
                      f"{tuple(a.shape)}")
+
+
+@torch.no_grad()
+def adam_update_(params: List[torch.Tensor], grads: List[torch.Tensor],
+                 mu: List[torch.Tensor], nu: List[torch.Tensor], t: int,
+                 lr: float, weight_decay: float = 0.0):
+    """optax's Adam update number `t` (from 1) in place: the moments with
+    bias correction, eps outside the square root, then (adamw) the
+    decoupled decay weight_decay·param, and the step -lr·update."""
+    b1, b2 = ADAM_B1, ADAM_B2
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+    denom = torch._foreach_div(nu, 1.0 - b2 ** t)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, ADAM_EPS)
+    upd = torch._foreach_div(mu, 1.0 - b1 ** t)
+    torch._foreach_div_(upd, denom)
+    if weight_decay:
+        torch._foreach_add_(upd, params, alpha=weight_decay)
+    torch._foreach_add_(params, upd, alpha=-lr)
 
 
 class Optimizer:
@@ -201,19 +231,8 @@ class Optimizer:
         weight decay, the schedule's lr at the current count."""
         grads = self.grads()
         self.clip_(grads)
-        b1, b2 = ADAM_B1, ADAM_B2
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
-        t = self.count + 1
-        denom = torch._foreach_div(self.nu, 1.0 - b2 ** t)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, ADAM_EPS)
-        upd = torch._foreach_div(self.mu, 1.0 - b1 ** t)
-        torch._foreach_div_(upd, denom)
-        torch._foreach_add_(upd, self.params, alpha=self.cfg.weight_decay)
-        torch._foreach_add_(self.params, upd, alpha=-self.lr())
+        adam_update_(self.params, grads, self.mu, self.nu, self.count + 1,
+                     self.lr(), self.cfg.weight_decay)
         self.count += 1
 
     def zero_grad(self):

@@ -126,8 +126,7 @@ def test_cli_strain_with_asd_override(release, tmp_path):
 
 @pytest.mark.parametrize("flags, item", [
     (["--event", "GW150914"], "ROADMAP §1 item 7"),
-    (["--inject", "--plots"], "ROADMAP §1 item 7"),
-    (["--inject", "--n-signals", "2"], "ROADMAP §1 item 5")])
+    (["--inject", "--plots"], "ROADMAP §1 item 7")])
 def test_cli_refuses_paths_not_ported(flags, item, capsys, tmp_path):
     with pytest.raises(SystemExit) as e:
         cli.main(["--ckpt", str(tmp_path), "--device", "cpu", *flags])

@@ -80,6 +80,11 @@ isr = importance_correct(eng, ctx[0], 0, inj.samples, inj.log_prob,
                              prep.strain, device="cpu"),
                          marginalized=True, pad_block=32, min_ess_frac=1.0,
                          max_stages=2)
+from posteriflow_torch.core.pipeline import AHSDPipeline
+from posteriflow_torch.inference.ranking import rank_overlapping
+inj1 = infer(eng, data=prep, rank=1, n_samples=32, seed=2)
+order, scores = rank_overlapping([inj, inj1], prep.strain, device="cpu")
+dec = AHSDPipeline(eng, max_signals=1, n_samples=32).decompose(prep)
 import dataclasses
 from posteriflow_torch.train.loop import _merge_params
 from posteriflow_torch.train.checkpoints import load_release
@@ -101,6 +106,9 @@ print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                   "inject": [list(inj.samples.shape),
                              bool(np.isfinite(inj.samples).all())],
                   "train": [bool(torch.isfinite(step["nll"])), state.step],
+                  "ranking": [sorted(order), bool(np.isfinite(scores).all())],
+                  "decompose": [len(dec["stages"]), bool(np.isfinite(
+                      dec["stages"][0]["quality"]))],
                   "importance": [list(isr.samples.shape), isr.n_stages,
                                  len(isr.mcmc_acceptance),
                                  abs(float(isr.weights.sum()) - 1.0) < 1e-6],
@@ -134,7 +142,11 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
         "tools.bench", "tools.bench_train", "tools.train_npe",
         "train.trainer", "train.diagnostics", "train.gates", "train.loop",
         "utils.config", "inference.importance", "inference.dynesty_bridge",
-        "evaluation.metrics", "tools.infer")}
+        "evaluation.metrics", "tools.infer", "models.priority_net",
+        "inference.ranking", "train.train_priority", "core.calibrator",
+        "core.subtractor", "core.bias_corrector", "core.pipeline",
+        "core.pod", "evaluation.benchmarks", "tools.priority_eval",
+        "tools.overlap_bench")}
     assert expected <= set(out["modules"])
     assert out["shape"] == [64, 15] and out["finite"]
     assert out["verdict"] in ("HIGH", "MEDIUM", "LOW") and out["gate"]
@@ -142,6 +154,8 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
     assert out["inject"] == [[32, 15], True]
     assert out["train"] == [True, 1]
     assert out["importance"] == [[32, 15], 2, 1, True]
+    assert out["ranking"] == [[0, 1], True]
+    assert out["decompose"] == [1, True]
     assert out["loaded"] == []
 
 
