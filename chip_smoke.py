@@ -14,7 +14,8 @@ Phases (any failure exits non-zero and prints no result line):
   (a) CUDA present (no CPU fallback); the card's name and power limit; TF32
       off for matmuls and cuDNN; build the kernel with nvcc and print what
       `-Xptxas -v` says of every instance (registers, spills): the K = 16
-      instances must spill nothing.
+      instances must spill nothing. The noise bank's crop server
+      (csrc/bankd.cpp) is built with g++ at the same time.
   (b) the kernel against its plain PyTorch version on raw + bias at the
       flagship sampling shape (N = 131072 rows, D = 7, K = 16), at ragged
       N (641, 5000: a part tile), at importance sampling's 4096 rows and
@@ -115,6 +116,23 @@ Phases (any failure exits non-zero and prints no result line):
       the oracle; fit_priority for 50 steps at batch 32 with the v7
       architecture: finite losses, the last 10 below the first 10 on
       average, steps/s.
+  (u) the real-noise path on the flagship: a synthetic bank of 16 x 64 s
+      segments a detector written by tools/make_noise_bank.py, loaded on
+      the card; simulate_batch at real_noise_prob 1 card against CPU on the
+      same draws (crops, filters and bands exact, the strain at (f)'s
+      tolerances, asd_bands non-zero on kept and zero on dropped
+      detectors); 10 train steps of the flagship's own SimConfig
+      (real_noise_prob 0.5) with the bank, timed and profiled as (m) is,
+      beside (m)'s figures without it, then 12 steps each with and
+      without it in turns, and the crops' gather by CUDA events: the real-noise
+      share within 4 binomial σ of 0.5, 10 + 10 spline launches a step and no plain
+      spline, step 0's NLL in (m)'s band, a non-zero noise_fc1.weight
+      gradient (exactly zero in a control step without the bank); the
+      native crop server (built with g++ in (a)) serving, its crops/s;
+      HostNoiseFeed -> simulate_batch(real_feed=) -> 4 train steps, the
+      wait in next() a step, each batch equal to the server's; fit(bank=)
+      for 1 epoch of 2 steps: JAX's history keys and select_nll the mean
+      of val_nll and real_val_nll.
   (e) the kernel table and the device as JSON lines; the last line is
       {"ok": true, "device": {...}}.
 Every time printed names the card and its power limit.
@@ -129,6 +147,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -244,6 +263,23 @@ POD_EVENTS, POD_SAMPLES, POD_STAGES, POD_TEMPLATES = 8, 1024, 3, 128
 EVAL_REF = {"top1": 0.917, "close": 0.713, "tau": 0.812}
 EVAL_BAND = {"top1": 0.05, "close": 0.07, "tau": 0.05}
 PRIORITY_FIT_STEPS, PRIORITY_FIT_BATCH = 50, 32
+# (u) the real-noise path on a synthetic bank of BANK_SEGMENTS 64 s segments
+# a detector (tools/make_noise_bank.py --synthetic). Card vs CPU at
+# real_noise_prob 1 on BANK_PARITY_EVENTS events with detector dropout
+# raised to BANK_PARITY_DROPOUT (so that dropped detectors occur), at (f)'s
+# tolerances; the crops, filters and bands exact. BANK_STEPS train steps of
+# the flagship's own SimConfig (real_noise_prob 0.5) with the bank on the
+# card: the share of real-noise events within BANK_SHARE_SIGMAS binomial σ
+# of the probability. FEED_STEPS steps fed by HostNoiseFeed (batch i from
+# server seed FEED_SEED·1_000_003 + i); fit with the bank for one epoch of
+# BANK_FIT_STEPS steps on BANK_FIT_VAL validation events a domain.
+BANK_SEGMENTS, BANK_PARITY_EVENTS, BANK_PARITY_DROPOUT = 16, 16, 0.5
+BANK_STEPS, BANK_SHARE_SIGMAS = 10, 4.0
+# then BANK_TURNS pairs of steps with and without the bank in turns
+# (without, with; with, without; ...), host wall each, for the comparison
+BANK_TURNS = 12
+FEED_STEPS, FEED_SEED, SERVER_REPS = 4, 6, 5
+BANK_FIT_STEPS, BANK_FIT_VAL = 2, 32
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1320,6 +1356,30 @@ def phase_train_parity(torch, plain, rqs_cuda, cfg, state_dict, card):
     return out
 
 
+def build_bank_server(out: dict):
+    """(a) build csrc/bankd.cpp with g++ into posteriflow_torch/_build/;
+    fills `out` with the library's name, the seconds and success."""
+    from posteriflow_torch.data import native_bank
+    t0 = time.perf_counter()
+    out["library"] = native_bank.library_path().name
+    out["ok"] = native_bank.build_native()
+    out["seconds"] = time.perf_counter() - t0
+
+
+def release_state(torch, cfg):
+    """A TrainState of `cfg` on the card holding the release's weights."""
+    from posteriflow_torch.train.checkpoints import load_release
+    from posteriflow_torch.train.loop import _merge_params
+    from posteriflow_torch.train.trainer import init_state
+    state = init_state(cfg, generator=torch.Generator().manual_seed(0),
+                       device=DEVICE)
+    merged, kept, total = _merge_params(state.model.state_dict(),
+                                        load_release(RELEASE)[0])
+    check(kept == total, f"init-from transferred {kept}/{total} leaves")
+    state.model.load_state_dict(merged)
+    return state
+
+
 def phase_train_steps(torch, plain, rqs_cuda, cfg, card):
     """(m, part 2) TRAIN_STEPS steps of simulate -> batch_nll -> backward ->
     clip -> AdamW at the flagship's full width, from the release's weights
@@ -1327,16 +1387,8 @@ def phase_train_steps(torch, plain, rqs_cuda, cfg, card):
     from posteriflow_torch.physics.simulator import simulate_batch
     from posteriflow_torch.tools.bench_train import (PEAK_BF16_FLOPS,
                                                      flops_per_step)
-    from posteriflow_torch.train.checkpoints import load_release
-    from posteriflow_torch.train.loop import _merge_params
-    from posteriflow_torch.train.trainer import (backward, batch_nll,
-                                                 init_state)
-    state = init_state(cfg, generator=torch.Generator().manual_seed(0),
-                       device=DEVICE)
-    merged, kept, total = _merge_params(state.model.state_dict(),
-                                        load_release(RELEASE)[0])
-    check(kept == total, f"init-from transferred {kept}/{total} leaves")
-    state.model.load_state_dict(merged)
+    from posteriflow_torch.train.trainer import backward, batch_nll
+    state = release_state(torch, cfg)
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     layers = cfg.npe.flow_layers
     counts, restore = _count_plain(torch, plain)
@@ -1414,10 +1466,11 @@ def phase_train_steps(torch, plain, rqs_cuda, cfg, card):
             "launches": path}
 
 
-def profile_train_step(torch, state, cfg, gen, card):
-    """Device time of one train step by kernel (torch.profiler): the busy
-    share of the step's window, its launches and the kernels that take most
-    of it."""
+def profile_train_step(torch, state, cfg, gen, card, bank=None,
+                       label="(m)"):
+    """Device time of one train step by kernel (torch.profiler), with
+    `bank`'s real noise when given: the busy share of the step's window,
+    its launches and the kernels that take most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     from posteriflow_torch.physics.simulator import simulate_batch
@@ -1427,18 +1480,19 @@ def profile_train_step(torch, state, cfg, gen, card):
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             train_step(state, simulate_batch(cfg.batch_size, cfg.sim,
-                                             device=DEVICE, generator=gen))
+                                             device=DEVICE, generator=gen,
+                                             bank=bank))
             torch.cuda.synchronize()
             window_us = (time.perf_counter() - t0) * 1e6
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
     except RuntimeError as e:           # no CUPTI on this machine
-        print(f"(m) profiler: not available ({e})")
+        print(f"{label} profiler: not available ({e})")
         return None
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
-    print(f"(m) profile of one train step [{card}]: kernels "
+    print(f"{label} profile of one train step [{card}]: kernels "
           f"{busy_us / 1e3:.3f} ms of a {window_us / 1e3:.3f} ms window "
           f"(device busy {busy_us / window_us:.1%}, under the profiler); "
           f"{launches} launches; top kernels:")
@@ -2191,6 +2245,349 @@ def phase_priority_quality(torch, card):
             "steps_per_s": rate}
 
 
+def _bank_parity(torch, bank, bank_cpu, sim_cfg, card):
+    """(u, part 1) simulate_batch with the bank at real_noise_prob 1 on the
+    card against the CPU, on the same draws made on the CPU."""
+    from posteriflow_torch.data.noise_bank import RealNoiseDraws
+    from posteriflow_torch.physics import simulator as tsim
+    from posteriflow_torch.prior import sample_batch
+    cfg = dataclasses.replace(sim_cfg, real_noise_prob=1.0,
+                              det_dropout=BANK_PARITY_DROPOUT)
+    b = BANK_PARITY_EVENTS
+    g = torch.Generator().manual_seed(13)
+    params, n_sig = sample_batch(b, cfg.prior, g, "cpu")
+    draws = tsim.draw_events((b,), g, "cpu")
+    real = tsim.draw_real((b,), g, "cpu", bank_cpu)
+    out = {}
+    for dev, bk in ((DEVICE, bank), ("cpu", bank_cpu)):
+        d_real = tsim.RealDraws(real.use_u.to(dev), RealNoiseDraws(
+            *[t.to(dev) for t in real.crop]))
+        with torch.no_grad():
+            ev = tsim.simulate_batch(
+                b, cfg, device=dev, params=params.to(dev),
+                n_sig=n_sig.to(dev), draws=tsim.SimDraws(
+                    *[t.to(dev) for t in draws]), bank=bk,
+                real_draws=d_real)
+            crops = tsim.real_noise(d_real, bk)
+        out[dev] = (ev, crops)
+    (eg, cg), (ec, cc) = out[DEVICE], out["cpu"]
+    crops_equal = all(torch.equal(x.cpu(), y)
+                      for x, y in zip(cg[1:], cc[1:]))
+    noise = cc.noise.numpy()
+    if cfg.glitch_prob > 0:
+        noise = noise + tsim._glitch_burst(draws, cfg.glitch_prob).numpy()
+    mask = ec.det_mask.numpy()[..., None] > 0
+    sig = np.where(mask, ec.strain.numpy() - noise, 0.0)
+    tol = SIM_ATOL + SIM_SIG * np.abs(sig).max(axis=(-2, -1))
+    err = np.abs(eg.strain.cpu().numpy() - ec.strain.numpy()).max(
+        axis=(-2, -1))
+    same_gate = (torch.equal(eg.n_sig.cpu(), ec.n_sig)
+                 and torch.equal(eg.params.cpu(), ec.params)
+                 and torch.equal(eg.det_mask.cpu(), ec.det_mask))
+    bands = eg.asd_bands.cpu()
+    kept = eg.det_mask.cpu() > 0
+    live = bands.abs().amax(-1)
+    bands_ok = bool((live[kept] > 0).all() and (live[~kept] == 0).all())
+    print(f"(u) bank batch card vs CPU, flagship 15-D at real_noise_prob 1, "
+          f"dropout {BANK_PARITY_DROPOUT}, B={b}, n_sig {ec.n_sig.tolist()}, "
+          f"{int((~kept).sum())} detectors dropped [{card}]: crops, filters "
+          f"and bands identical {crops_equal}; gate and masks identical "
+          f"{same_gate}; asd_bands identical "
+          f"{torch.equal(bands, ec.asd_bands)}, non-zero on every kept and "
+          f"zero on every dropped detector {bands_ok}; strain max|Δ| "
+          f"{err.max():.3e} (tol per event {SIM_ATOL:g} + {SIM_SIG:g} x the "
+          f"re-coloured signal's peak, at most {tol.max():.3e})")
+    check(crops_equal, "bank crops differ between card and CPU")
+    check(same_gate, "bank batch: the gate differs between card and CPU")
+    check(torch.equal(bands, ec.asd_bands), "asd_bands differ card vs CPU")
+    check(bands_ok and bool((~kept).any()),
+          f"asd_bands by detector {live.tolist()}, kept {kept.tolist()}")
+    check(bool((err <= tol).all()), f"bank batch strain differs by {err}")
+    check(bool(torch.isfinite(eg.strain).all()), "non-finite strain")
+
+
+def _real_events(batch) -> int:
+    """Events whose noise was real: non-zero bands on a kept detector."""
+    return int((batch.asd_bands.abs().amax(dim=(1, 2)) > 0).sum())
+
+
+def _bank_steps(torch, plain, rqs_cuda, cfg, bank, card, no_bank):
+    """(u, part 2) BANK_STEPS train steps of the flagship's SimConfig with
+    the device bank, from the release's weights, timed as (m) is; then a
+    control step's gradient without the bank."""
+    from posteriflow_torch.data.noise_bank import (draw_real_noise,
+                                                   real_noise_from_draws)
+    from posteriflow_torch.physics.simulator import simulate_batch
+    from posteriflow_torch.train.trainer import (backward, batch_nll,
+                                                 train_step)
+    state = release_state(torch, cfg)
+    fc1 = state.model.encoder.noise_fc1.weight
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    layers = cfg.npe.flow_layers
+    counts, restore = _count_plain(torch, plain)
+    nlls, parts, walls, launches, grads, real = [], [], [], [], [], 0
+    torch.cuda.reset_peak_memory_stats()
+    rqs_cuda.KERNEL.launches = rqs_cuda.GRAD_KERNEL.launches = 0
+    try:
+        for _ in range(BANK_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            f0 = rqs_cuda.KERNEL.launches
+            b0 = rqs_cuda.GRAD_KERNEL.launches
+            t0 = time.perf_counter()
+            ev[0].record()
+            batch = simulate_batch(cfg.batch_size, cfg.sim, device=DEVICE,
+                                   generator=gen, bank=bank)
+            ev[1].record()
+            state.opt.zero_grad()
+            loss = batch_nll(state.model, batch)
+            ev[2].record()
+            backward(loss)
+            ev[3].record()
+            state.opt.step()
+            ev[4].record()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            parts.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+            nlls.append(float(loss.detach()))
+            launches.append((rqs_cuda.KERNEL.launches - f0,
+                             rqs_cuda.GRAD_KERNEL.launches - b0))
+            grads.append(float(fc1.grad.abs().max()))
+            real += _real_events(batch)
+    finally:
+        restore()
+    path = (rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    state.opt.zero_grad()
+    control = simulate_batch(cfg.batch_size, cfg.sim, device=DEVICE,
+                             generator=gen)
+    backward(batch_nll(state.model, control))
+    ctrl = float(fc1.grad.abs().max())
+    state.opt.zero_grad()
+    turns = {"without": [], "with": []}
+    for r in range(BANK_TURNS):
+        for kind in (("without", "with") if r % 2 == 0
+                     else ("with", "without")):
+            t0 = time.perf_counter()
+            train_step(state, simulate_batch(
+                cfg.batch_size, cfg.sim, device=DEVICE, generator=gen,
+                bank=bank if kind == "with" else None))
+            torch.cuda.synchronize()
+            turns[kind].append((time.perf_counter() - t0) * 1e3)
+    crop_draws = draw_real_noise((cfg.batch_size,), bank, gen)
+    crop_ms = cuda_time_ms(lambda: real_noise_from_draws(bank, crop_draws),
+                           reps=20)
+    # what the crops must move: the float16 reads and float32 writes of
+    # the crops, the filters' and bands' reads and writes
+    crop_bytes = cfg.batch_size * 3 * (16384 * (2 + 4) + (
+        bank.recolor.shape[-1] + bank.asd_bands.shape[-1]) * 4 * 2)
+    steady = parts[1:]
+    mean = [sum(p[j] for p in steady) / len(steady) for j in range(4)]
+    step_ms = sum(walls[1:]) / len(walls[1:])
+    n_ev = BANK_STEPS * cfg.batch_size
+    p = cfg.sim.real_noise_prob
+    share = real / n_ev
+    sigma = math.sqrt(p * (1.0 - p) / n_ev)
+    profile = profile_train_step(torch, state, cfg, gen, card, bank=bank,
+                                 label="(u)")
+    m_split = no_bank["split_ms"]
+    m_prof = no_bank["profile"]
+    m_busy = (f"{m_prof['busy_ms'] / m_prof['window_ms']:.1%}" if m_prof
+              else "not measured")
+    busy = (f"{profile['busy_ms'] / profile['window_ms']:.1%}" if profile
+            else "not measured")
+    print(f"(u) {BANK_STEPS} train steps with the device bank, flagship "
+          f"SimConfig (real_noise_prob {p}), batch {cfg.batch_size}, from "
+          f"{RELEASE} [{card}]: NLL by step {[round(v, 4) for v in nlls]}; "
+          f"real-noise events {real}/{n_ev} = {share:.4f} "
+          f"({(share - p) / sigma:+.2f} σ); spline launches a step "
+          f"(forward, backward) {sorted(set(launches))}, plain spline calls "
+          f"{counts}; |grad noise_fc1.weight| max by step "
+          f"{[f'{v:.3e}' for v in grads]}, in a control step without the "
+          f"bank {ctrl!r}")
+    print(f"(u) step split over steps 2-{BANK_STEPS} by CUDA events, with "
+          f"the bank [without it, (m)]: simulate {mean[0]:.3f} "
+          f"[{m_split[0]:.3f}] ms, forward {mean[1]:.3f} [{m_split[1]:.3f}], "
+          f"backward {mean[2]:.3f} [{m_split[2]:.3f}], optimizer "
+          f"{mean[3]:.3f} [{m_split[3]:.3f}]; host wall {step_ms:.3f} "
+          f"[{no_bank['step_ms']:.3f}] ms a step: {1e3 / step_ms:.3f} "
+          f"[{no_bank['steps_per_s']:.3f}] steps/s; peak memory {peak:.2f} "
+          f"[{no_bank['peak_gib']:.2f}] GiB; device busy {busy} [{m_busy}] "
+          f"under the profiler")
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    won = sum(a < b for a, b in zip(turns["with"], turns["without"]))
+    print(f"(u) in turns, {BANK_TURNS} train steps each, host wall a step "
+          f"with the bank {[round(v, 1) for v in turns['with']]} ms "
+          f"(median {med['with']:.3f}), without "
+          f"{[round(v, 1) for v in turns['without']]} ms (median "
+          f"{med['without']:.3f}): ratio {med['with'] / med['without']:.4f}, "
+          f"the bank's step the faster of its pair {won}/{BANK_TURNS}; "
+          f"the batch's crops (real_noise_from_draws, B={cfg.batch_size}) "
+          f"{crop_ms * 1e3:.1f} µs by CUDA events against "
+          f"{crop_bytes / PEAK_BYTES_PER_S * 1e6:.1f} µs to move "
+          f"{crop_bytes / 1e6:.1f} MB [{card}]")
+    check(all(math.isfinite(v) for v in nlls), f"non-finite NLL: {nlls}")
+    check(TRAIN_NLL0[0] <= nlls[0] <= TRAIN_NLL0[1],
+          f"step-0 NLL with the bank {nlls[0]} outside {TRAIN_NLL0}")
+    check(abs(share - p) <= BANK_SHARE_SIGMAS * sigma,
+          f"real-noise share {share} is {(share - p) / sigma:.2f} σ from {p}")
+    check(all(lc == (layers, layers) for lc in launches),
+          f"spline launches by step {launches}, expected {layers} each way")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"the plain spline ran in the bank steps: {counts}")
+    check(all(v > 0 for v in grads), f"noise_fc1.weight gradient {grads}")
+    check(ctrl == 0.0, f"noise_fc1.weight gradient without a bank {ctrl}")
+    return {"state": state, "launches": path, "nlls": nlls,
+            "split_ms": mean, "step_ms": step_ms,
+            "steps_per_s": 1e3 / step_ms, "peak_gib": peak,
+            "profile": profile, "share": share, "turns_ms": med,
+            "crop_ms": crop_ms}
+
+
+def _feed_steps(torch, plain, rqs_cuda, state, cfg, bank_dir, card):
+    """(u, part 3) the native crop server and HostNoiseFeed ->
+    simulate_batch(real_feed=) -> FEED_STEPS train steps."""
+    from posteriflow_torch.data.host_feed import HostNoiseFeed
+    from posteriflow_torch.data.native_bank import NativeBankServer
+    from posteriflow_torch.physics.simulator import simulate_batch
+    from posteriflow_torch.train.trainer import backward, batch_nll
+    b = cfg.batch_size
+    server = NativeBankServer(bank_dir)
+    native = server.native
+    check(native, "the native crop server did not load")
+    server.sample(seed=0, n_events=b)                  # pages the bank in
+    t0 = time.perf_counter()
+    for r in range(SERVER_REPS):
+        server.sample(seed=r + 1, n_events=b)
+    crops_per_s = SERVER_REPS * b * 3 / (time.perf_counter() - t0)
+    layers = cfg.npe.flow_layers
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    waits, walls, nlls, launches, noises, real = [], [], [], [], [], 0
+    counts, restore = _count_plain(torch, plain)
+    rqs_cuda.KERNEL.launches = rqs_cuda.GRAD_KERNEL.launches = 0
+    try:
+        with HostNoiseFeed(bank_dir, batch_size=b,
+                           psd_bands=cfg.sim.psd_bands, seed=FEED_SEED,
+                           device=DEVICE) as feed:
+            for _ in range(FEED_STEPS):
+                f0 = rqs_cuda.KERNEL.launches
+                b0 = rqs_cuda.GRAD_KERNEL.launches
+                t0 = time.perf_counter()
+                rf = feed.next()
+                t1 = time.perf_counter()
+                batch = simulate_batch(b, cfg.sim, device=DEVICE,
+                                       generator=gen, real_feed=rf)
+                state.opt.zero_grad()
+                loss = batch_nll(state.model, batch)
+                backward(loss)
+                state.opt.step()
+                torch.cuda.synchronize()
+                waits.append((t1 - t0) * 1e3)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                nlls.append(float(loss.detach()))
+                launches.append((rqs_cuda.KERNEL.launches - f0,
+                                 rqs_cuda.GRAD_KERNEL.launches - b0))
+                noises.append(rf[0])
+                real += _real_events(batch)
+    finally:
+        restore()
+    path = (rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches)
+    same = [np.array_equal(n.cpu().numpy(), server.sample(
+        seed=FEED_SEED * 1_000_003 + i, n_events=b)[0])
+        for i, n in enumerate(noises)]
+    server.close()
+    print(f"(u) native crop server (native {native}) [{card}]: "
+          f"{crops_per_s:.0f} crops/s of 16384 samples ({b} events x 3 "
+          f"detectors a call, 4 threads); HostNoiseFeed (depth 2, pinned "
+          f"buffers, its own stream) -> simulate_batch(real_feed=) -> "
+          f"{FEED_STEPS} train steps: next() waited "
+          f"{[round(w, 3) for w in waits]} ms, step walls "
+          f"{[round(w, 1) for w in walls]} ms, NLL "
+          f"{[round(v, 4) for v in nlls]}, real-noise events {real}/"
+          f"{FEED_STEPS * b}; spline launches a step {sorted(set(launches))}"
+          f", plain spline calls {counts}; each batch equal to the server's "
+          f"crops at its seed {same}")
+    check(all(same), f"host feed batches differ from the server's: {same}")
+    check(all(math.isfinite(v) for v in nlls), f"non-finite NLL: {nlls}")
+    check(all(lc == (layers, layers) for lc in launches),
+          f"spline launches by feed step {launches}")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"the plain spline ran in the feed steps: {counts}")
+    return {"launches": path, "waits_ms": waits, "crops_per_s": crops_per_s}
+
+
+def _bank_fit(torch, rqs_cuda, cfg, bank, card):
+    """(u, part 4) fit(bank=) for one epoch from the release."""
+    import tempfile
+
+    from posteriflow_torch.train.loop import fit
+    with open(f"{RELEASE}/meta.json") as f:
+        jax_keys = set(json.load(f)["metrics"])
+    with tempfile.TemporaryDirectory() as tmp:
+        rqs_cuda.KERNEL.launches = rqs_cuda.GRAD_KERNEL.launches = 0
+        t0 = time.perf_counter()
+        fit(cfg, tmp, epochs=1, steps_per_epoch=BANK_FIT_STEPS,
+            n_val_events=BANK_FIT_VAL, init_from=RELEASE, device=DEVICE,
+            bank=bank)
+        fit_s = time.perf_counter() - t0
+        path = (rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches)
+        with open(f"{tmp}/history.json") as f:
+            rec = json.load(f)[-1]
+    mean = 0.5 * (rec["val_nll"] + rec["real_val_nll"])
+    print(f"(u) fit(bank=) 1 epoch x {BANK_FIT_STEPS} steps, "
+          f"{BANK_FIT_VAL} validation events a domain, from {RELEASE} "
+          f"[{card}]: {fit_s:.1f} s; val_nll {rec['val_nll']:.4f}, "
+          f"real_val_nll {rec['real_val_nll']:.4f}, select_nll "
+          f"{rec['select_nll']:.4f}; real_dist_corr "
+          f"{rec['real_dist_corr']:.4f}; spline launches (forward, "
+          f"backward) {path}; history keys as JAX's {set(rec) == jax_keys}")
+    check(set(rec) == jax_keys,
+          f"history keys {sorted(set(rec) ^ jax_keys)} differ")
+    check(math.isfinite(rec["real_val_nll"]), "non-finite real_val_nll")
+    check(abs(rec["select_nll"] - mean) <= 1e-12 * max(1.0, abs(mean)),
+          f"select_nll {rec['select_nll']} is not the mean {mean}")
+    return {"launches": path, "seconds": fit_s}
+
+
+def phase_bank(torch, plain, rqs_cuda, cfg, card, no_bank):
+    """(u) the real-noise path on the flagship at full width."""
+    import tempfile
+
+    from posteriflow_torch.data.noise_bank import load_noise_bank
+    from posteriflow_torch.tools import make_noise_bank
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        bank_dir = f"{tmp}/bank"
+        t0 = time.perf_counter()
+        make_noise_bank.main(["--out", bank_dir, "--synthetic",
+                              str(BANK_SEGMENTS)])
+        made_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bank = load_noise_bank(bank_dir, psd_bands=cfg.sim.psd_bands,
+                               device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        bank_cpu = load_noise_bank(bank_dir, psd_bands=cfg.sim.psd_bands,
+                                   device="cpu")
+        print(f"(u) bank: tools/make_noise_bank.py --synthetic "
+              f"{BANK_SEGMENTS} in {made_s:.2f} s; on the card "
+              f"{tuple(bank.segments.shape)} float16 "
+              f"({bank.segments.numel() * 2 / 1e6:.1f} MB) + filters "
+              f"{bank.recolor.numel() * 4 / 1e6:.2f} MB, loaded in "
+              f"{load_s:.2f} s [{card}]")
+        check(tuple(bank.segments.shape)
+              == (3, BANK_SEGMENTS, 64 * SAMPLE_RATE),
+              f"bank shape {tuple(bank.segments.shape)}")
+        _bank_parity(torch, bank, bank_cpu, cfg.sim, card)
+        steps = _bank_steps(torch, plain, rqs_cuda, cfg, bank, card,
+                            no_bank)
+        feed = _feed_steps(torch, plain, rqs_cuda, steps.pop("state"), cfg,
+                           bank_dir, card)
+        fitted = _bank_fit(torch, rqs_cuda, cfg, bank, card)
+    print(f"(u) phase done in {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
+    return {"steps": steps, "feed": feed, "fit": fitted}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2218,12 +2615,20 @@ def main() -> int:
               f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
               f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
         t0 = time.perf_counter()
+        bank_build = {}
+        bank_thread = threading.Thread(target=build_bank_server,
+                                       args=(bank_build,))
+        bank_thread.start()             # g++ beside nvcc
         rqs_cuda.KERNEL.load()
         built = rqs_cuda.KERNEL.build_seconds
+        bank_thread.join()
         print(f"(a) kernel library {rqs_cuda.library_path().name} ready in "
               f"{time.perf_counter() - t0:.2f} s ("
               f"{'nvcc %.2f s' % built if built is not None else 'cached'})"
-              f" [{card}]")
+              f" [{card}]; crop server {bank_build['library']} built by g++ "
+              f"in {bank_build['seconds']:.2f} s: {bank_build['ok']}")
+        check(bank_build["ok"], "the crop server csrc/bankd.cpp did not "
+                                "build (the compiler's output is logged)")
         phase_ptxas(rqs_cuda)
 
         x, raw, bias, errs = phase_kernel_check(torch, plain, rqs_cuda,
@@ -2265,6 +2670,7 @@ def main() -> int:
         quality = phase_priority_quality(torch, card)
         print(f"(p)-(t) overlap phases done in "
               f"{time.perf_counter() - t0:.1f} s [{card}]")
+        bank = phase_bank(torch, plain, rqs_cuda, train_cfg, card, train)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2291,7 +2697,13 @@ def main() -> int:
                              f"stages x 2048 rows (r)": decomp["launches"],
                              f"batched decompose, {POD_STAGES} stages x "
                              f"{POD_EVENTS * POD_SAMPLES} rows (s)":
-                                 pod["launches"]},
+                                 pod["launches"],
+                             f"train {BANK_STEPS} steps with the device "
+                             f"bank (u)": bank["steps"]["launches"][0],
+                             f"train {FEED_STEPS} steps from the host feed "
+                             f"(u)": bank["feed"]["launches"][0],
+                             f"fit(bank=) 1 epoch x {BANK_FIT_STEPS} "
+                             f"steps (u)": bank["fit"]["launches"][0]},
         "max_abs_err": max(errs["inverse"][0], errs["forward"][0]),
         "max_abs_err_logdet": max(errs["inverse"][1], errs["forward"][1]),
         "ms": k_ms, "plain_ms": p_ms,
@@ -2314,7 +2726,13 @@ def main() -> int:
         "launches_by_path": {f"train {TRAIN_STEPS} steps (m)":
                                  train["launches"][1],
                              "fit 2 epochs + resume 1 (n)":
-                                 fitted["launches"][1]},
+                                 fitted["launches"][1],
+                             f"train {BANK_STEPS} steps with the device "
+                             f"bank (u)": bank["steps"]["launches"][1],
+                             f"train {FEED_STEPS} steps from the host feed "
+                             f"(u)": bank["feed"]["launches"][1],
+                             f"fit(bank=) 1 epoch x {BANK_FIT_STEPS} "
+                             f"steps (u)": bank["fit"]["launches"][1]},
         "max_abs_err": grad["max_abs_err"],
         "max_rel_err": grad["max_rel_err"],
         "train_step_vs_plain": parity["kernels / plain on the card"],
@@ -2343,7 +2761,10 @@ def main() -> int:
           f"{decomp['wall'] / decomp['stages'] * 1e3:.1f} ms a stage; "
           f"batched decompose {pod['call_ms']:.1f} ms a call; priority_eval "
           f"top-1 {quality['eval']['top1']:.4f}, close pairs "
-          f"{quality['eval']['close']:.4f}")
+          f"{quality['eval']['close']:.4f}; training with the bank "
+          f"{bank['steps']['steps_per_s']:.3f} steps/s, host feed wait "
+          f"{max(bank['feed']['waits_ms'][1:]):.3f} ms a step at most "
+          f"after the first")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ def make_batched_decompose(cfg, n_samples: int = 1024, max_stages: int = 3,
     if mesh is not None:
         raise NotImplementedError(
             "the sharded batched decompose waits for the port's "
-            "data-parallel path, ROADMAP §1 item 3 (torch DDP)")
+            "data-parallel path, ROADMAP §1 item 5 (torch DDP)")
     uses_bands = cfg.npe.uses_asd_bands
 
     @torch.no_grad()

@@ -15,7 +15,8 @@ preprocessing.py):
   - asd_bands with the training definition: band-mean
     log(ASD_design / ASD_measured) over K log bands.
 Simulated injections (`prepare_simulated`, :209-257 of the JAX module) go
-through the port's simulator on the device.
+through the port's simulator on the device. `fetch_gwosc` (:266-285) is
+gated on gwpy, as in JAX: without it, it raises JAX's ImportError.
 """
 
 from __future__ import annotations
@@ -249,3 +250,26 @@ def prepare_simulated(params_list, seed: int = 0, psd_bands: int = 16,
                         warnings=warnings,
                         timings={"prepare": time.time() - t0},
                         truth=ev.params[:n_sig].cpu().numpy())
+
+
+def fetch_gwosc(event: Optional[str] = None, gps: Optional[float] = None,
+                detectors=DETECTORS, duration: float = 64.0):
+    """Fetch open strain around an event or GPS time through gwpy ->
+    ({det: strain at SAMPLE_RATE}, gps). Needs gwpy and GWOSC network
+    access."""
+    try:
+        from gwpy.timeseries import TimeSeries
+    except ImportError as e:
+        raise ImportError(
+            "fetch_gwosc requires gwpy (GWOSC network access). Install "
+            "gwpy, or pass local strain to prepare_real / use "
+            "prepare_simulated for injections.") from e
+    from gwosc.datasets import event_gps
+    if gps is None:
+        gps = event_gps(event)
+    out = {}
+    for det in detectors:
+        ts = TimeSeries.fetch_open_data(det, gps - duration / 2,
+                                        gps + duration / 2)
+        out[det] = ts.resample(SAMPLE_RATE).value
+    return out, gps

@@ -1,28 +1,36 @@
 """Training-data synthesis on the device: priors → waveforms → whitened
 strain.
 
-Port of posteriflow_tpu/physics/simulator.py with no noise bank and no
-host feed (the JAX package's `bank=None, real_feed=None`, which bench.py
-runs): `real_noise_prob` then has no effect, and every event gets design
-Gaussian noise. Real-noise crops wait for the data-path port.
+Port of posteriflow_tpu/physics/simulator.py, with its noise bank and host
+feed (`bank=`, `real_feed=`, data/noise_bank.py and data/host_feed.py):
+with either given and `real_noise_prob` > 0, each event takes real noise
+with that probability: a bank crop (or the feed's crop), its signals
+re-coloured into that segment's whitening before the single transform to
+the time domain, and asd_bands from the segment. With neither, every
+event gets design Gaussian noise and asd_bands = 0.
 
 The semantics are the JAX package's:
   - per-signal SNR is measured, never targeted; signals below min_snr are
     dropped and the survivors packed first in loudness order
     (Mc^(5/6)/d_L), with a branchless one-hot compaction and an index
     tie-break;
-  - detector dropout replaces a detector with unit white noise;
-  - network SNR is the L2 norm of the summed whitened signal over kept
-    detectors, taken in the frequency domain;
-  - design-whitened events carry asd_bands = 0.
+  - detector dropout replaces a detector with unit white noise, or on a
+    real-noise event with the same crop time-flipped and negated;
+  - network SNR is the L2 norm of the summed design-whitened signal over
+    kept detectors, taken in the frequency domain;
+  - the glitch is added after the noise is chosen (real noise gets it
+    too, the dropout fill never); dropped detectors report asd_bands 0.
 
 Every random step is split into a draw and an apply part: `draw_events`
 makes the noise, fill, dropout and glitch draws (`SimDraws`) from a
-torch.Generator, and `simulate_from_draws` is deterministic given the
-parameters and the draws. `simulate_batch` runs the JAX package's two
-passes: the amplitude-only SNR of every slot on a decimated grid (4 for
-the aligned set, 2 for the precessing one), the gate, then the full
-whitened waveform of every slot and the masked slot sum.
+torch.Generator, `draw_real` the real-noise choice and crops
+(`RealDraws`), made only when a bank or feed is given and
+real_noise_prob > 0 and after the others, so the Gaussian path's stream
+from a seed is the same with or without a bank. `simulate_from_draws` is
+deterministic given the parameters and the draws. `simulate_batch` runs the
+JAX package's two passes: the amplitude-only SNR of every slot on a
+decimated grid (4 for the aligned set, 2 for the precessing one), the gate,
+then the full whitened waveform of every slot and the masked slot sum.
 """
 
 from __future__ import annotations
@@ -34,6 +42,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from posteriflow_torch.data.noise_bank import (NoiseBank, RealNoiseDraws,
+                                               draw_real_noise,
+                                               real_noise_from_draws)
 from posteriflow_torch.physics.constants import (DELTA_F, DURATION, F_LOWER,
                                                  FREQS, N_DETECTORS,
                                                  N_SAMPLES)
@@ -66,8 +77,8 @@ class SimConfig:
     psd_bands: int = 16
     f_lower: float = F_LOWER
     add_noise: bool = True
-    # real-noise crops need a noise bank, which the port has not yet; with
-    # none, as here, the JAX simulator ignores this field too
+    # per-event probability of a real-noise crop; used only when a noise
+    # bank or a host feed is given (ignored without one, as in JAX)
     real_noise_prob: float = 0.0
     # per-event probability of 1..3 sine-Gaussian bursts in one detector
     glitch_prob: float = 0.0
@@ -133,6 +144,47 @@ def draw_events(batch_shape, generator: Optional[torch.Generator] = None,
         glitch_centers=torch.randint(0, N_SAMPLES, s + (mg,), **kw),
         glitch_widths=20.0 + torch.rand(s + (mg,), **kw) * 180.0,
         glitch_amps=2.0 + torch.rand(s + (mg,), **kw) * 6.0)
+
+
+class RealDraws(NamedTuple):
+    """The real-noise draws of simulate_event, leading dims [...]."""
+    use_u: torch.Tensor                 # [...] U(0, 1): real if < prob
+    crop: Optional[RealNoiseDraws]      # the bank's crops (None: a feed)
+
+
+class RealNoise(NamedTuple):
+    """What simulate_from_draws takes of real noise, leading dims [...]."""
+    use_u: torch.Tensor        # [...] U(0, 1): real if < real_noise_prob
+    noise: torch.Tensor        # [..., n_det, T] float32 crops
+    recolor: torch.Tensor      # [..., n_det, N_RFFT] re-colouring filters
+    asd_bands: torch.Tensor    # [..., n_det, K] band summaries
+
+
+def mixes_real_noise(cfg: "SimConfig", bank=None, real_feed=None) -> bool:
+    """Whether events take real noise: a bank or a feed is given and
+    real_noise_prob > 0."""
+    return ((bank is not None or real_feed is not None)
+            and cfg.real_noise_prob > 0.0)
+
+
+def draw_real(batch_shape, generator: Optional[torch.Generator] = None,
+              device="cuda", bank: Optional[NoiseBank] = None) -> RealDraws:
+    """RealDraws for events of `batch_shape`: the real-noise coin, then the
+    bank's crop draws (none without a bank: a host feed brings its crops)."""
+    use_u = torch.rand(tuple(batch_shape), generator=generator,
+                       device=device)
+    crop = (None if bank is None
+            else draw_real_noise(batch_shape, bank, generator))
+    return RealDraws(use_u, crop)
+
+
+def real_noise(real_draws: RealDraws, bank: Optional[NoiseBank] = None,
+               real_feed=None) -> RealNoise:
+    """The real noise of the draws: the feed's (noise, recolor, bands) if
+    given, else the bank's crops."""
+    if real_feed is None:
+        real_feed = real_noise_from_draws(bank, real_draws.crop)
+    return RealNoise(real_draws.use_u, *real_feed)
 
 
 def _freqs(device, decimate: int = 1) -> torch.Tensor:
@@ -317,10 +369,14 @@ def _glitch_burst(draws: SimDraws, prob: float) -> torch.Tensor:
     return burst[..., None, :] * det[..., None]
 
 
-def simulate_from_draws(pre, draws: SimDraws, cfg: SimConfig) -> EventBatch:
+def simulate_from_draws(pre, draws: SimDraws, cfg: SimConfig,
+                        real: Optional[RealNoise] = None) -> EventBatch:
     """Assemble whitened 3-detector events from the gated waveform sum
     `pre` = (params_ranked, sig_fd [..., D, F], snr_ranked, n_valid) and
-    the draws; deterministic."""
+    the draws; deterministic. With `real`, an event whose use_u is below
+    cfg.real_noise_prob takes the real crop as its noise, the crop
+    time-flipped and negated as its dropout fill, its signal spectrum
+    times the segment's filter, and the segment's asd_bands."""
     params, sig_fd, sig_snr, n_valid = pre
     dev = sig_fd.device
     keep_cfgs = device_constant("keep_configs", dev, lambda: torch.tensor(
@@ -336,15 +392,23 @@ def simulate_from_draws(pre, draws: SimDraws, cfg: SimConfig) -> EventBatch:
              - 0.5 * torch.abs(sig_fd[..., -1]) ** 2)
     net_snr = torch.sqrt(torch.sum(det_mask * e_det, dim=-1))
 
-    noise = draws.noise
+    noise, fill = draws.noise, draws.fill
     asd_bands = torch.zeros(det_mask.shape + (cfg.psd_bands,),
                             dtype=torch.float32, device=dev)
+    if real is not None:
+        use = (real.use_u < cfg.real_noise_prob)[..., None]     # [..., 1]
+        noise = torch.where(use[..., None], real.noise, noise)
+        fill = torch.where(use[..., None], -real.noise.flip(-1), fill)
+        # re-colouring is diagonal in frequency: it folds into the spectrum
+        # before the one transform to the time domain
+        sig_fd = torch.where(use[..., None], sig_fd * real.recolor, sig_fd)
+        asd_bands = torch.where(use[..., None], real.asd_bands, asd_bands)
     sig_td = fd_white_to_td(sig_fd, N_SAMPLES)                 # [..., D, T]
     if cfg.glitch_prob > 0.0:
         noise = noise + _glitch_burst(draws, cfg.glitch_prob)
     if cfg.add_noise:
         strain = torch.where(det_mask[..., None] > 0, noise + sig_td,
-                             draws.fill)
+                             fill)
     else:
         strain = sig_td * det_mask[..., None]
     asd_bands = asd_bands * det_mask[..., None]
@@ -354,18 +418,28 @@ def simulate_from_draws(pre, draws: SimDraws, cfg: SimConfig) -> EventBatch:
 
 
 def simulate_event(params: torch.Tensor, n_sig, asd: torch.Tensor,
-                   cfg: SimConfig, draws: SimDraws) -> EventBatch:
+                   cfg: SimConfig, draws: SimDraws,
+                   bank: Optional[NoiseBank] = None, real_feed=None,
+                   real_draws: Optional[RealDraws] = None) -> EventBatch:
     """One event (no leading dim) from params [S, P] (unordered), n_sig and
     the draws of one event. The gate SNR is the full waveform's norm, as in
-    the JAX simulate_event without `pre`."""
+    the JAX simulate_event without `pre`. `bank` or `real_feed` = (noise
+    [D, T], recolor [D, F], bands [D, K]) mix in real noise with
+    cfg.real_noise_prob (the feed takes precedence), with `real_draws`
+    (RealDraws of one event) required then."""
     h_w = signal_white_fd(params, asd, cfg.f_lower)           # [S, D, F]
     snr = torch.sqrt(torch.sum(torch.abs(h_w) ** 2, dim=(-2, -1)))
     n_sig = torch.as_tensor(n_sig, device=params.device)
     params_r, keep, snr_r, n_valid = _gate_from_snr(params, snr, n_sig,
                                                     cfg.min_snr)
     sig_fd = torch.sum(keep[:, None, None] * h_w, dim=0)
+    real = None
+    if mixes_real_noise(cfg, bank, real_feed):
+        if real_draws is None:
+            raise ValueError("real-noise mixing needs real_draws")
+        real = real_noise(real_draws, bank, real_feed)
     return simulate_from_draws((params_r, sig_fd, snr_r, n_valid), draws,
-                               cfg)
+                               cfg, real)
 
 
 def gated_signal_sum(params: torch.Tensor, n_sig: torch.Tensor,
@@ -391,11 +465,17 @@ def simulate_batch(batch_size: int, cfg: SimConfig = SimConfig(),
                    generator: Optional[torch.Generator] = None,
                    params: Optional[torch.Tensor] = None,
                    n_sig: Optional[torch.Tensor] = None,
-                   draws: Optional[SimDraws] = None) -> EventBatch:
+                   draws: Optional[SimDraws] = None,
+                   bank: Optional[NoiseBank] = None, real_feed=None,
+                   real_draws: Optional[RealDraws] = None) -> EventBatch:
     """A fresh batch of B = batch_size events on `device`, drawn from
     `generator` (torch's default generator of the device when None).
     `params` [B, S, P] with `n_sig` [B], and `draws`, replace the prior and
-    the event draws when given."""
+    the event draws when given. `bank` (a NoiseBank on `device`) or
+    `real_feed` = (noise [B, D, T], recolor [B, D, F], bands [B, D, K])
+    from data/host_feed.py mix in real noise with cfg.real_noise_prob (the
+    feed takes precedence); their draws (`real_draws`, else drawn after
+    the others) are made only then."""
     device = torch.device(device)
     if asd is None:
         asd = design_asd(device)
@@ -404,5 +484,11 @@ def simulate_batch(batch_size: int, cfg: SimConfig = SimConfig(),
                                      device)
     if draws is None:
         draws = draw_events((batch_size,), generator, device)
+    real = None
+    if mixes_real_noise(cfg, bank, real_feed):
+        if real_draws is None:
+            real_draws = draw_real((batch_size,), generator, device,
+                                   None if real_feed is not None else bank)
+        real = real_noise(real_draws, bank, real_feed)
     pre = gated_signal_sum(params, n_sig, asd, cfg)
-    return simulate_from_draws(pre, draws, cfg)
+    return simulate_from_draws(pre, draws, cfg, real)

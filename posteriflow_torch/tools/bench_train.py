@@ -2,14 +2,17 @@
 utilisation (the twin of scripts/bench_train.py).
 
     python -m posteriflow_torch.tools.bench_train [--config DIR_OR_JSON]
-        [--batch 128] [--steps 20] [--init-from RELEASE] [--device cuda]
-        [--out FILE]
+        [--batch 128] [--steps 20] [--init-from RELEASE] [--no-bank]
+        [--device cuda] [--out FILE]
 
 Builds the TrainConfig (default: the flagship release's meta.json) and a
 fresh TrainState (or the release's weights with --init-from), runs warm-up
 steps, then times `--steps` full steps (simulate → encode → per-rank NLL →
 backward → clip → AdamW) as one steady-state window that ends in a device
-synchronisation.
+synchronisation. As in the JAX script, a config with real_noise_prob > 0
+(the flagship's 0.5) trains on a synthetic bank of 8 segments a detector
+(make_synthetic_bank, seed 7) unless --no-bank is given, which times the
+all-Gaussian workload.
 
 FLOPs per step are counted once with torch.utils.flop_counter.FlopCounterMode
 over one whole step: the matrix products and convolutions of the forward
@@ -19,7 +22,8 @@ the MFU is a floor. MFU = counted FLOPs × steps/s over the card's dense
 bf16 peak (PEAK_BF16_FLOPS, NVIDIA's H100 SXM data sheet at 700 W).
 
 Prints ONE JSON line: steps_per_sec, events_per_sec, flops_per_step,
-achieved_tflops, mfu, the final NLL and `card`, what
+achieved_tflops, mfu, the final NLL, real_noise_prob (0 without a bank),
+the bank's segment count and `card`, what
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints (on
 the CPU, "cpu"); --out also writes it to a file.
 """
@@ -37,6 +41,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 FLAGSHIP = ROOT / "model_release" / "npe_r7_best"
 PEAK_BF16_FLOPS = 989e12        # H100 SXM, dense bf16 (NVIDIA data sheet)
+BANK_SEGMENTS, BANK_SEED = 8, 7   # the JAX script's synthetic bank
 
 
 def flops_per_step(state, batch) -> int:
@@ -54,8 +59,9 @@ def flops_per_step(state, batch) -> int:
 
 
 def run(cfg, device="cuda", steps: int = 20, warmup: int = 2,
-        init_from=None, seed: int = 0) -> dict:
-    """The benchmark on `device` -> the report dict."""
+        init_from=None, seed: int = 0, bank=None) -> dict:
+    """The benchmark on `device` (mixing in `bank`'s real noise with
+    cfg.sim.real_noise_prob) -> the report dict."""
     from posteriflow_torch.physics.simulator import simulate_batch
     from posteriflow_torch.tools.bench import card_name
     from posteriflow_torch.train.checkpoints import load_release
@@ -71,12 +77,13 @@ def run(cfg, device="cuda", steps: int = 20, warmup: int = 2,
         state.model.load_state_dict(merged)
     n_params = sum(p.numel() for p in state.model.parameters())
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, bank)
 
     t0 = time.perf_counter()
     m = step(state, gen)                        # first step: builds, warms
     flops = flops_per_step(state, simulate_batch(cfg.batch_size, cfg.sim,
-                                                 device=dev, generator=gen))
+                                                 device=dev, generator=gen,
+                                                 bank=bank))
     for _ in range(max(warmup - 1, 0)):
         m = step(state, gen)
     float(m["nll"])
@@ -93,6 +100,10 @@ def run(cfg, device="cuda", steps: int = 20, warmup: int = 2,
     return {
         "device": str(dev), "card": card_name(dev),
         "batch_size": cfg.batch_size, "encoder": cfg.npe.encoder_type,
+        "psd_cond": cfg.npe.psd_cond,
+        "real_noise_prob": cfg.sim.real_noise_prob if bank is not None
+        else 0.0,
+        "bank_segments": bank.n_segments if bank is not None else None,
         "n_params": n_params, "warmup_s": round(warm_s, 3),
         "steps_timed": steps, "steps_per_sec": steps_per_s,
         "events_per_sec": steps_per_s * cfg.batch_size,
@@ -117,6 +128,8 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--init-from", default=None,
                     help="a release directory whose weights to train")
+    ap.add_argument("--no-bank", action="store_true",
+                    help="no synthetic noise bank: all events Gaussian")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
@@ -125,8 +138,15 @@ def main(argv=None):
     cfg = load_config(args.config)
     if args.batch:
         cfg = dataclasses.replace(cfg, batch_size=args.batch)
+    bank = None
+    if cfg.sim.real_noise_prob > 0.0 and not args.no_bank:
+        from posteriflow_torch.data.noise_bank import make_synthetic_bank
+        bank = make_synthetic_bank(
+            torch.Generator(device=args.device).manual_seed(BANK_SEED),
+            n_segments=BANK_SEGMENTS, psd_bands=cfg.sim.psd_bands,
+            device=args.device)
     report = run(cfg, device=args.device, steps=args.steps,
-                 warmup=args.warmup, init_from=args.init_from)
+                 warmup=args.warmup, init_from=args.init_from, bank=bank)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=2))

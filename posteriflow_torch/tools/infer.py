@@ -10,8 +10,11 @@ infer.py, for the paths the port serves).
         --device cpu --n-samples 64 --out /tmp/inj
     python -m posteriflow_torch.tools.infer --ckpt model_release/npe_r7_best \\
         --inject --n-signals 3 --out results/overlap
+    python -m posteriflow_torch.tools.infer --ckpt model_release/npe_r7_best \\
+        --event GW150914 --out results/gw150914
 
-Sources: --strain (one .npy [3, T] or one file per detector, named
+Sources: --event (open strain around a catalog event, fetched from GWOSC
+with gwpy: without gwpy this raises fetch_gwosc's ImportError), --strain (one .npy [3, T] or one file per detector, named
 H1_*.npy, L1_*.npy, V1_*.npy) with --gps and optionally --asd; or --inject,
 a fresh injection through the simulator, at --inject-params (a JSON list
 of parameter dicts, or a file holding one) or at --n-signals draws from
@@ -24,8 +27,8 @@ with the released PriorityNet (or the loudness fallback when none is
 present) and writes ranking.json with the order and the scores.
 Everything runs on --device (default cuda).
 
-Not ported yet, and refused with the ROADMAP item that will bring them:
---event (the GWOSC fetch), --plots (the corner and marginal plots).
+Not ported yet, and refused with the ROADMAP item that will bring it:
+--plots (the corner and marginal plots).
 """
 
 from __future__ import annotations
@@ -37,9 +40,7 @@ from pathlib import Path
 import numpy as np
 
 _NOT_PORTED = {
-    "--event": "fetching strain from GWOSC is ROADMAP §1 item 7 "
-               "(fetch_gwosc)",
-    "--plots": "the corner and marginal plots are ROADMAP §1 item 7 "
+    "--plots": "the corner and marginal plots are ROADMAP §1 item 2 "
                "(plot_corner / plot_marginals)",
 }
 
@@ -52,7 +53,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--name", default="best",
                     help="checkpoint name under a checkpoint root")
     src = ap.add_mutually_exclusive_group(required=True)
-    src.add_argument("--event", help="GWOSC event name (not ported)")
+    src.add_argument("--event", help="GWOSC event name (needs gwpy)")
     src.add_argument("--strain", nargs="+",
                      help="strain file(s): one .npy [3,T] or H1/L1/V1 files")
     src.add_argument("--inject", action="store_true",
@@ -129,20 +130,29 @@ def _overlapping(args, engine, prepared):
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
-    asked = {"--event": args.event is not None, "--plots": args.plots}
-    for flag, given in asked.items():
-        if given:
-            ap.error(f"{flag} is not ported yet: {_NOT_PORTED[flag]}")
+    if args.plots:
+        ap.error(f"--plots is not ported yet: {_NOT_PORTED['--plots']}")
 
     from posteriflow_torch.inference.importance import (
         importance_correct, make_marginalized_log_likelihood)
     from posteriflow_torch.inference.pipeline import InferenceEngine, infer
-    from posteriflow_torch.inference.preprocessing import (prepare_real,
+    from posteriflow_torch.inference.preprocessing import (fetch_gwosc,
+                                                           prepare_real,
                                                            prepare_simulated)
 
+    fetched = None
+    if args.event:
+        # the fetch first: without gwpy it fails before a model is loaded
+        fetched = fetch_gwosc(event=args.event)
     engine = InferenceEngine.from_checkpoint(args.ckpt, args.name,
                                              device=args.device)
-    if args.inject:
+    asd_by_det = _asd_override(args.asd) if args.asd else None
+    if fetched is not None:
+        strain_by_det, gps = fetched
+        prepared = prepare_real(strain_by_det, gps_time=gps,
+                                psd_bands=engine.cfg.psd_bands,
+                                asd_by_det=asd_by_det)
+    elif args.inject:
         params_list = _injection(args, engine)
         print("injected params:", json.dumps(params_list))
         prepared = prepare_simulated(params_list, seed=args.seed,
@@ -160,8 +170,7 @@ def main(argv=None):
                              for f in files}
         prepared = prepare_real(
             strain_by_det, gps_time=args.gps or 0.0,
-            psd_bands=engine.cfg.psd_bands,
-            asd_by_det=_asd_override(args.asd) if args.asd else None)
+            psd_bands=engine.cfg.psd_bands, asd_by_det=asd_by_det)
 
     if args.n_signals > 1:
         return _overlapping(args, engine, prepared)

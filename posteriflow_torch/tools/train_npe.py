@@ -4,12 +4,16 @@ are simulated on the device every step, nothing is read from disk.
     python -m posteriflow_torch.tools.train_npe --outdir model/run1 --epochs 60
     python -m posteriflow_torch.tools.train_npe \\
         --config model_release/npe_r7_best/meta.json --outdir model/ft \\
-        --init-from model_release/npe_r7_best
+        --init-from model_release/npe_r7_best --noise-bank data/noise_bank
     python -m posteriflow_torch.tools.train_npe --device cpu --config tiny.json \\
         --outdir /tmp/run --epochs 1 --steps-per-epoch 2 --batch 4
 
 --config takes a JSON TrainConfig (or overrides of it), a release's
-meta.json or a release directory. The noise bank, the mesh and the PRNG
+meta.json or a release directory. --noise-bank loads a bank directory
+(tools/make_noise_bank.py writes one) onto the device: training mixes in
+its real noise with the config's real_noise_prob (0.5 if that is not
+positive) and validates on a real-noise batch too. A real_noise_prob above
+0 without a bank is an error, as in the JAX script. The mesh and the PRNG
 choice of the JAX script wait for their slices of the port.
 """
 
@@ -38,6 +42,12 @@ def main(argv=None):
     ap.add_argument("--resume-from", default=None,
                     help="restore the whole state (weights, optimizer, "
                          "schedule step) of a checkpoint: no LR restart")
+    ap.add_argument("--noise-bank", default=None,
+                    help="real-noise bank directory (see "
+                         "tools/make_noise_bank.py); enables real-noise "
+                         "mixing and the real-noise validation domain")
+    ap.add_argument("--real-noise-prob", type=float, default=None,
+                    help="per-event probability of a real-noise crop")
     ap.add_argument("--grad-clip-mode", choices=("global", "agc"),
                     default=None)
     ap.add_argument("--grad-clip", type=float, default=None,
@@ -58,11 +68,29 @@ def main(argv=None):
                          ("grad_clip", args.grad_clip)):
         if value is not None:
             overrides[field] = value
+    if args.real_noise_prob is not None:
+        overrides["sim"] = dataclasses.replace(
+            cfg.sim, real_noise_prob=args.real_noise_prob)
     cfg = dataclasses.replace(cfg, **overrides)
+
+    bank = None
+    if args.noise_bank:
+        from posteriflow_torch.data.noise_bank import load_noise_bank
+        bank = load_noise_bank(args.noise_bank, psd_bands=cfg.sim.psd_bands,
+                               device=args.device)
+        if cfg.sim.real_noise_prob <= 0.0:
+            cfg = dataclasses.replace(
+                cfg, sim=dataclasses.replace(cfg.sim, real_noise_prob=0.5))
+        logging.getLogger("posteriflow.train").info(
+            "noise bank: %s (%d segments/det, real_noise_prob=%.2f)",
+            args.noise_bank, bank.n_segments, cfg.sim.real_noise_prob)
+    elif cfg.sim.real_noise_prob > 0.0:
+        ap.error("--real-noise-prob needs --noise-bank")
     _, history = fit(cfg, args.outdir, epochs=args.epochs,
                      steps_per_epoch=args.steps_per_epoch, seed=args.seed,
                      ckpt_every=args.ckpt_every, init_from=args.init_from,
-                     resume_from=args.resume_from, device=args.device)
+                     resume_from=args.resume_from, device=args.device,
+                     bank=bank)
     return history
 
 

@@ -1,11 +1,14 @@
 """The training loop (torch): epochs of simulate + train steps, per-epoch
 diagnostics, calibration-gated checkpoint selection, history.json.
 
-Port of posteriflow_tpu/train/loop.py:39-232 without the noise bank and
-the mesh (later slices):
+Port of posteriflow_tpu/train/loop.py:39-232 without the mesh (a later
+slice):
 
   - a fixed validation batch (the same seed every epoch) so that metrics
-    compare across epochs;
+    compare across epochs; with a noise bank, real-noise mixing in
+    training and a second fixed batch all of real noise, whose NLL and
+    diagnostics are logged as real_*, and the best checkpoint selected on
+    the mean of the two validation NLLs;
   - per-epoch diagnostics (shuffle-ΔNLL, dist_corr, coverage) and the
     calibration gate (railing, base_conc, cov90[_highsnr], SBC), with base
     draws from one fixed seed;
@@ -16,6 +19,7 @@ the mesh (later slices):
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import time
@@ -25,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from posteriflow_torch.data.noise_bank import NoiseBank
 from posteriflow_torch.physics.simulator import simulate_batch
 from posteriflow_torch.train.checkpoints import CheckpointManager, load_release
 from posteriflow_torch.train.diagnostics import make_diagnostics
@@ -38,7 +43,7 @@ from posteriflow_torch.train.trainer import (TrainConfig, init_state,
 log = logging.getLogger("posteriflow.train")
 
 # the seeds fixed across epochs are steps of epoch 0, which never trains
-_INIT, _VAL, _DIAG = 0, 1, 2
+_INIT, _VAL, _DIAG, _VAL_REAL = 0, 1, 2, 3
 
 
 def _merge_params(fresh: Dict[str, torch.Tensor],
@@ -68,8 +73,15 @@ def fit(cfg: TrainConfig, outdir, epochs: int = 60,
         steps_per_epoch: int = 200, seed: int = 0,
         gate: CalibrationGate = CalibrationGate(), ckpt_every: int = 0,
         n_val_events: int = 256, init_from: Optional[str] = None,
-        resume_from: Optional[str] = None, device="cuda"):
+        resume_from: Optional[str] = None, device="cuda",
+        bank: Optional[NoiseBank] = None):
     """Train LeanNPE on `device`; returns (state, history).
+
+    bank: a NoiseBank on `device`; training events take its real noise
+    with cfg.sim.real_noise_prob, a fixed batch of n_val_events all of real
+    noise is validated every epoch (real_val_nll and real_<diagnostic>),
+    and select_nll, which picks the best checkpoint, is the mean of
+    val_nll and real_val_nll.
 
     init_from: a release directory (params.msgpack: weights merged by key
     and shape into a fresh init) or a training checkpoint directory
@@ -119,13 +131,19 @@ def fit(cfg: TrainConfig, outdir, epochs: int = 60,
     n_params = sum(p.numel() for p in state.model.parameters())
     log.info("LeanNPE parameters: %s", f"{n_params:,}")
 
-    epoch_fn = make_train_epoch(cfg, steps_per_epoch)
+    epoch_fn = make_train_epoch(cfg, steps_per_epoch, bank)
     eval_nll = make_eval_nll(cfg)
     diagnostics = make_diagnostics(cfg, n_events=n_val_events)
     cal_metrics_fn = make_calibration_metrics(cfg)
 
     val_batch = simulate_batch(n_val_events, cfg.sim, device=dev,
                                generator=_generator(dev, seed, _VAL))
+    val_real = None
+    if bank is not None:
+        val_real = simulate_batch(
+            n_val_events, dataclasses.replace(cfg.sim, real_noise_prob=1.0),
+            device=dev, generator=_generator(dev, seed, _VAL_REAL),
+            bank=bank)
 
     history = list(prior_history)
     best_epoch = -1
@@ -138,11 +156,20 @@ def fit(cfg: TrainConfig, outdir, epochs: int = 60,
         cal = evaluate_gate(cfg, state.model, val_batch,
                             generator=_generator(dev, seed, _DIAG),
                             gate=gate, metrics_fn=cal_metrics_fn)
+        real_metrics, select = {}, val
+        if val_real is not None:
+            real_nll = eval_nll(state.model, val_real)
+            dr = diagnostics(state.model, val_real,
+                             generator=_generator(dev, seed, _DIAG))
+            real_metrics = {"real_val_nll": real_nll,
+                            **{f"real_{k}": v for k, v in dr.items()
+                               if not isinstance(v, np.ndarray)}}
+            select = 0.5 * (val + real_nll)
         rec = {
             **({"init_from": str(init_from)} if init_from else {}),
             **({"resume_from": str(resume_from)} if resume_from else {}),
-            "epoch": epoch, "train_nll": m["nll"], "select_nll": val,
-            "val_nll": val, "grad_norm": m["grad_norm"],
+            "epoch": epoch, "train_nll": m["nll"], "select_nll": select,
+            "val_nll": val, **real_metrics, "grad_norm": m["grad_norm"],
             **{k: v for k, v in m.items() if k.startswith("gn_")},
             "lr_step": state.step,
             "epoch_seconds": round(time.time() - t0, 1),

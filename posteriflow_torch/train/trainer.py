@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from posteriflow_torch.data.noise_bank import NoiseBank
 from posteriflow_torch.models.encoder import (AttentionPool,
                                               LeanStrainEncoder)
 from posteriflow_torch.models.flow import Conditioner
@@ -330,22 +331,25 @@ def _device(state: TrainState) -> torch.device:
     return next(state.model.parameters()).device
 
 
-def make_train_step(cfg: TrainConfig):
+def make_train_step(cfg: TrainConfig, bank: Optional[NoiseBank] = None):
     """step(state, generator) -> metrics: simulate a batch of
-    cfg.batch_size events from `generator` on the model's device, then
-    train_step."""
+    cfg.batch_size events from `generator` on the model's device (mixing in
+    `bank`'s real noise with cfg.sim.real_noise_prob), then train_step."""
     def step(state: TrainState, generator: torch.Generator):
         batch = simulate_batch(cfg.batch_size, cfg.sim,
-                               device=_device(state), generator=generator)
+                               device=_device(state), generator=generator,
+                               bank=bank)
         return train_step(state, batch)
     return step
 
 
-def make_train_epoch(cfg: TrainConfig, n_steps: int):
+def make_train_epoch(cfg: TrainConfig, n_steps: int,
+                     bank: Optional[NoiseBank] = None):
     """epoch(state, seed, epoch) -> mean metrics of n_steps steps (nll,
     grad_norm, the component norms as means, last_nll); step i draws from a
-    generator seeded by step_seed(seed, epoch, i)."""
-    step_fn = make_train_step(cfg)
+    generator seeded by step_seed(seed, epoch, i), with `bank` as in
+    make_train_step."""
+    step_fn = make_train_step(cfg, bank)
 
     def epoch_fn(state: TrainState, seed: int, epoch: int) -> dict:
         dev = _device(state)

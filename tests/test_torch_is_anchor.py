@@ -1,8 +1,9 @@
 """The anchor comparison and the command line of the importance slice:
 `run_comparison(sampler="smc_prior", importance=True)` on the JAX tests'
 TINY engine returns the JAX package's keys, and `tools/infer.py` serves
-and importance-corrects on the CPU, writing normalized weights, while the
-flags of paths not yet ported fail with the ROADMAP item that brings them.
+and importance-corrects on the CPU, writing normalized weights, while
+--plots, not yet ported, fails with the ROADMAP item that brings it and
+--event raises the JAX package's ImportError without gwpy.
 
 The samplers run at test size on the CPU: run_smc_prior with 128
 particles and at most 3 stages, importance_correct at pad_block 64 or 128
@@ -12,6 +13,7 @@ and at most 2 or 3 stages, in both packages (one [3, 8193] waveform costs
 import dataclasses
 import functools
 import json
+import sys
 
 import jax
 import numpy as np
@@ -124,12 +126,26 @@ def test_cli_strain_with_asd_override(release, tmp_path):
     assert not (out / "weights.npy").exists()
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--event", "GW150914"], "ROADMAP §1 item 7"),
-    (["--inject", "--plots"], "ROADMAP §1 item 7")])
-def test_cli_refuses_paths_not_ported(flags, item, capsys, tmp_path):
+def test_cli_refuses_paths_not_ported(capsys, tmp_path):
     with pytest.raises(SystemExit) as e:
-        cli.main(["--ckpt", str(tmp_path), "--device", "cpu", *flags])
+        cli.main(["--ckpt", str(tmp_path), "--device", "cpu", "--inject",
+                  "--plots"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "is not ported yet" in err and item in err
+    assert "is not ported yet" in err and "ROADMAP §1 item 2" in err
+
+
+def test_cli_event_raises_jax_import_error_without_gwpy(monkeypatch,
+                                                        tmp_path):
+    """--event fetches through fetch_gwosc, which without gwpy raises the
+    JAX package's ImportError (before any model is loaded)."""
+    from posteriflow_tpu.inference.preprocessing import fetch_gwosc as jfetch
+    monkeypatch.setitem(sys.modules, "gwpy", None)
+    monkeypatch.setitem(sys.modules, "gwpy.timeseries", None)
+    with pytest.raises(ImportError) as want:
+        jfetch(event="GW150914")
+    with pytest.raises(ImportError) as got:
+        cli.main(["--ckpt", str(tmp_path), "--device", "cpu", "--event",
+                  "GW150914"])
+    assert str(got.value) == str(want.value)
+    assert "fetch_gwosc requires gwpy" in str(got.value)

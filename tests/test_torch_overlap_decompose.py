@@ -143,7 +143,7 @@ def test_batched_decompose_matches_jax(tiny):
     assert ok, err
     for k in ("alpha", "quality", "fit_snr", "final_residual"):
         assert _close(got[k], ref[k]), k
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
         make_batched_decompose(cfg, mesh=object())
 
 

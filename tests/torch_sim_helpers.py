@@ -1,15 +1,19 @@
-"""Shared pieces of the simulator parity tests (tests/test_torch_sim_*.py):
-JAX's own event draws, rebuilt from its keys and handed to the port as
-SimDraws, and the waveform match."""
+"""Shared pieces of the simulator parity tests (tests/test_torch_sim_*.py,
+tests/test_torch_data_*.py): JAX's own event draws, rebuilt from its keys
+and handed to the port as SimDraws (and its real-noise draws, from k_use
+and k_real, as RealDraws), and the waveform match."""
 
 import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from posteriflow_tpu.physics.constants import N_DETECTORS, N_SAMPLES
 from posteriflow_tpu.prior import sample_batch as jsample_batch
+from posteriflow_torch.data.noise_bank import RealNoiseDraws
+from posteriflow_torch.physics.simulator import RealDraws
 from posteriflow_torch.physics.simulator import SimConfig as TSimConfig
 from posteriflow_torch.physics.simulator import SimDraws
 from posteriflow_torch.prior import PriorConfig as TPriorConfig
@@ -27,6 +31,17 @@ DRAWS = {
     "extreme_q": [90.0, 4.2, 300.0, 0.2, 1.1, 0.9, 1.7, 3.3, -1.2, 0.95,
                   0.9, 1.5, 1.6, 0.1, 6.0],
 }
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op torch thread for a test (a module uses it as an autouse
+    fixture): the suite runs in several worker processes on one machine,
+    and a thread pool a worker makes them wait on one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def draws_array(n_params: int) -> np.ndarray:
@@ -63,6 +78,43 @@ def jax_event_draws(key) -> SimDraws:
         out[k] = torch.from_numpy(a.astype(np.int64) if a.dtype.kind == "i"
                                   else a.astype(np.float32))
     return SimDraws(**out)
+
+
+def jax_real_draws(key, n_segments: int, segment_len: int) -> RealDraws:
+    """The real-noise draws JAX's simulate_event takes from `key` with a
+    bank of n_segments segments of segment_len samples: the coin from
+    k_use, and sample_real_noise's (segment, offset, flip) per detector
+    from the first split of k_real."""
+    (_, _, _, _, k_real, k_use, _) = jax.random.split(key, 7)
+    k_r1, _ = jax.random.split(k_real)
+    use_u = torch.from_numpy(np.array(jax.random.uniform(k_use),
+                                        np.float32))
+    return RealDraws(use_u, jax_crop_draws(k_r1, n_segments, segment_len))
+
+
+def jax_crop_draws(key, n_segments: int, segment_len: int) -> RealNoiseDraws:
+    """The (segment, offset, flip) per detector that JAX's
+    sample_real_noise(key, bank) draws."""
+    k_seg, k_off, k_flip = jax.random.split(key, 3)
+    r = jax.random
+    return RealNoiseDraws(
+        seg_idx=torch.from_numpy(np.asarray(
+            r.randint(k_seg, (N_DETECTORS,), 0, n_segments)).astype(np.int64)),
+        off=torch.from_numpy(np.asarray(
+            r.randint(k_off, (N_DETECTORS,), 0,
+                      segment_len - N_SAMPLES)).astype(np.int64)),
+        flip=torch.from_numpy(np.asarray(
+            r.bernoulli(k_flip, 0.5, (N_DETECTORS,)))))
+
+
+def jax_batch_real_draws(key, batch: int, n_segments: int,
+                         segment_len: int) -> RealDraws:
+    """jax_real_draws of every event of JAX's simulate_batch(key, batch)."""
+    keys = jax.random.split(jax.random.split(key)[1], batch)
+    per = [jax_real_draws(k, n_segments, segment_len) for k in keys]
+    return RealDraws(torch.stack([p.use_u for p in per]),
+                     RealNoiseDraws(*[torch.stack(f) for f in
+                                      zip(*[p.crop for p in per])]))
 
 
 def stack_draws(draws) -> SimDraws:
