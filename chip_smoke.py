@@ -19,7 +19,8 @@ Phases (any failure exits non-zero and prints no result line):
   (b) the kernel against its plain PyTorch version on raw + bias at the
       flagship sampling shape (N = 131072 rows, D = 7, K = 16), at ragged
       N (641, 5000: a part tile), at importance sampling's 4096 rows and
-      at the decompositions' 2048 and 8192 rows (phases r, s), both
+      at the decompositions' 2048 and 8192 rows (phases r, s), at
+      validation's 256 and 102,400 rows (phase v), both
       directions, with and without the bias, with tails beyond ±5: out
       and logdet max |Δ| = 0.
   (c) serve 4 requests through `infer` (raw 32 s coloured Gaussian noise per
@@ -133,6 +134,22 @@ Phases (any failure exits non-zero and prints no result line):
       wait in next() a step, each batch equal to the server's; fit(bank=)
       for 1 epoch of 2 steps: JAX's history keys and select_nll the mean
       of val_nll and real_val_nll.
+  (v) checkpoint validation: a port checkpoint of the release (config hash
+      b58b05b3ce29, the JAX report's) validated by
+      tools/validate_checkpoint.py at reports/val_r7/report.json's size,
+      1792 events x 400 draws: exit 0, the nine gates passing, val NLL,
+      shuffle ΔNLL, distance correlation, railing and base_conc each within
+      4 σ of the report (σ from the port's chunk-to-chunk spread, printed),
+      the SBC p-values beside JAX's; exactly 50 rqs_tile launches a chunk
+      and 10 a request, the plain spline never; the fitted ood_stats.npz
+      against the release's (KS p > 1e-3, medians within 5%), served armed;
+      the real-noise domain on (u)'s bank at 256 events (finite, ten gates);
+      rqs_tile at 102,400 rows inverse and 256 forward timed beside its
+      bound (bit-equal there in (b)); tools/twin_grid.py at its defaults
+      (distances within 2e-3 of analysis/twin_grid.json, 320 launches);
+      tools/importance_validation.py on two cases with --cross-check
+      (converged, corrected Mc median within 2% of the truth). Every
+      output goes to a temporary directory.
   (e) the kernel table and the device as JSON lines; the last line is
       {"ok": true, "device": {...}}.
 Every time printed names the card and its power limit.
@@ -147,6 +164,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -280,6 +298,30 @@ BANK_STEPS, BANK_SHARE_SIGMAS = 10, 4.0
 BANK_TURNS = 12
 FEED_STEPS, FEED_SEED, SERVER_REPS = 4, 6, 5
 BANK_FIT_STEPS, BANK_FIT_VAL = 2, 32
+# (v) checkpoint validation at reports/val_r7/report.json's own size (7
+# chunks of 256 events, 400 draws each). Its statistics are estimates from
+# fresh events: each is held within VAL_SIGMAS σ of the JAX report, σ the
+# standard error of the difference of two such estimates (the port's
+# chunk-to-chunk sd / √chunks, times √2). The fitted ood_stats' distances
+# against the release's shipped ones: two-sample KS p > OOD_KS_P, medians
+# within OOD_MEDIAN_REL. The real-noise domain on (u)'s bank at
+# VAL_REAL_EVENTS events, a mechanics check. The twin grid's distances
+# (SNR-rescaled, no noise) within TWIN_DIST_REL of analysis/twin_grid.json
+# (the float32 phase gap the simulator tests allow); importance_validation
+# on IV_CASES with run_smc_prior capped at IS_SMC_STAGES, each corrected
+# chirp-mass median within IV_MC_REL of the truth.
+VAL_REPORT = "reports/val_r7/report.json"
+VAL_EVENTS, VAL_POST, VAL_CHUNK, VAL_SIGMAS = 1792, 400, 256, 4.0
+VAL_STATS = {"val_nll": "val_nll_diag", "shuffle_delta_nll":
+             "shuffle_delta_nll", "dist_corr": "dist_corr",
+             "spurious_railing": "spurious_railing", "base_conc": "base_conc"}
+VAL_HASH = "b58b05b3ce29"
+VAL_REQUESTS = 12                  # 6 smoke + 3 glitch+signal + 3 live OOD
+OOD_KS_P, OOD_MEDIAN_REL = 1e-3, 0.05
+VAL_REAL_EVENTS = 256
+TWIN_REPORT, TWIN_DIST_REL = "analysis/twin_grid.json", 2e-3
+IV_REPORT = "analysis/importance_validation.json"
+IV_CASES, IV_MC_REL = ("gw150914_like", "gw170608_like"), 0.02
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -391,6 +433,7 @@ def phase_kernel_check(torch, plain, rqs_cuda, card):
     errs = {}
     flagship = None
     for n in (N_ROWS, *RAGGED_ROWS, IS_ROWS, DECOMPOSE_ROWS,
+              VAL_CHUNK, VAL_CHUNK * VAL_POST,
               POD_EVENTS * POD_SAMPLES):
         x, raw, bias = spline_inputs(torch, n, seed=n)
         if n == N_ROWS:
@@ -2548,44 +2591,317 @@ def _bank_fit(torch, rqs_cuda, cfg, bank, card):
     return {"launches": path, "seconds": fit_s}
 
 
-def phase_bank(torch, plain, rqs_cuda, cfg, card, no_bank):
-    """(u) the real-noise path on the flagship at full width."""
-    import tempfile
-
+def phase_bank(torch, plain, rqs_cuda, cfg, card, no_bank, bank_dir):
+    """(u) the real-noise path on the flagship at full width, on a
+    synthetic bank written to bank_dir (which phase v reads again)."""
     from posteriflow_torch.data.noise_bank import load_noise_bank
     from posteriflow_torch.tools import make_noise_bank
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        bank_dir = f"{tmp}/bank"
-        t0 = time.perf_counter()
-        make_noise_bank.main(["--out", bank_dir, "--synthetic",
-                              str(BANK_SEGMENTS)])
-        made_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        bank = load_noise_bank(bank_dir, psd_bands=cfg.sim.psd_bands,
-                               device=DEVICE)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        bank_cpu = load_noise_bank(bank_dir, psd_bands=cfg.sim.psd_bands,
-                                   device="cpu")
-        print(f"(u) bank: tools/make_noise_bank.py --synthetic "
-              f"{BANK_SEGMENTS} in {made_s:.2f} s; on the card "
-              f"{tuple(bank.segments.shape)} float16 "
-              f"({bank.segments.numel() * 2 / 1e6:.1f} MB) + filters "
-              f"{bank.recolor.numel() * 4 / 1e6:.2f} MB, loaded in "
-              f"{load_s:.2f} s [{card}]")
-        check(tuple(bank.segments.shape)
-              == (3, BANK_SEGMENTS, 64 * SAMPLE_RATE),
-              f"bank shape {tuple(bank.segments.shape)}")
-        _bank_parity(torch, bank, bank_cpu, cfg.sim, card)
-        steps = _bank_steps(torch, plain, rqs_cuda, cfg, bank, card,
-                            no_bank)
-        feed = _feed_steps(torch, plain, rqs_cuda, steps.pop("state"), cfg,
-                           bank_dir, card)
-        fitted = _bank_fit(torch, rqs_cuda, cfg, bank, card)
+    t0 = time.perf_counter()
+    make_noise_bank.main(["--out", bank_dir, "--synthetic",
+                          str(BANK_SEGMENTS)])
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bank = load_noise_bank(bank_dir, psd_bands=cfg.sim.psd_bands,
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bank_cpu = load_noise_bank(bank_dir, psd_bands=cfg.sim.psd_bands,
+                               device="cpu")
+    print(f"(u) bank: tools/make_noise_bank.py --synthetic "
+          f"{BANK_SEGMENTS} in {made_s:.2f} s; on the card "
+          f"{tuple(bank.segments.shape)} float16 "
+          f"({bank.segments.numel() * 2 / 1e6:.1f} MB) + filters "
+          f"{bank.recolor.numel() * 4 / 1e6:.2f} MB, loaded in "
+          f"{load_s:.2f} s [{card}]")
+    check(tuple(bank.segments.shape)
+          == (3, BANK_SEGMENTS, 64 * SAMPLE_RATE),
+          f"bank shape {tuple(bank.segments.shape)}")
+    _bank_parity(torch, bank, bank_cpu, cfg.sim, card)
+    steps = _bank_steps(torch, plain, rqs_cuda, cfg, bank, card,
+                        no_bank)
+    feed = _feed_steps(torch, plain, rqs_cuda, steps.pop("state"), cfg,
+                       bank_dir, card)
+    fitted = _bank_fit(torch, rqs_cuda, cfg, bank, card)
     print(f"(u) phase done in {time.perf_counter() - t_phase:.1f} s "
           f"[{card}]")
     return {"steps": steps, "feed": feed, "fit": fitted}
+
+
+def _val_stats(record: dict, report: dict, ref: dict, card):
+    """(v) each averaged statistic against the JAX report within
+    VAL_SIGMAS σ of the difference of two estimates."""
+    n = len(record["chunks"])
+    rows = []
+    for key, per_chunk in VAL_STATS.items():
+        vals = np.array([c[per_chunk] for c in record["chunks"]])
+        sigma = float(vals.std(ddof=1)) / math.sqrt(n) * math.sqrt(2.0)
+        got, want = report["metrics"][key], ref["metrics"][key]
+        rows.append((key, got, want, sigma, abs(got - want) / sigma))
+    print(f"(v) statistics against {VAL_REPORT} (JAX, {ref['metrics']['n_events']}"
+          f" x {ref['metrics']['n_post']}) [{card}]: "
+          + "; ".join(f"{k} {g:.4f} vs {w:.4f} (σ of the difference "
+                      f"{s:.4f}: {z:.2f} σ)" for k, g, w, s, z in rows))
+    m, rm = report["metrics"], ref["metrics"]
+    print(f"(v) coverage violations 50/90 {m['cov50_violations']}/"
+          f"{m['cov90_violations']} (JAX {rm['cov50_violations']}/"
+          f"{rm['cov90_violations']}); SBC pass {m['sbc_pass_frac']:.4f} "
+          f"(JAX {rm['sbc_pass_frac']}); KS p by parameter (port, JAX): "
+          + ", ".join(f"{k} {m['sbc_ks_p'][k]:.5f}/{rm['sbc_ks_p'][k]:.5f}"
+                      for k in m["sbc_ks_p"]))
+    print(f"(v) smoke |t_c| errors "
+          f"{[round(t['tc_abs_err'], 4) for t in m['smoke_tests']]} (max "
+          f"{m['smoke_tc_max_abs_err']:.4f}, JAX "
+          f"{rm['smoke_tc_max_abs_err']:.4f}); live OOD "
+          f"{[(c['case'], c['verdict'], round(c['ood_percentile'], 2), c['refine']) for c in m['ood_live']]}"
+          f"; glitch+signal "
+          f"{[(c['det'], c['verdict'], round(c['tc_abs_err'], 4), round(c['mc_frac_err'], 4), c['handled']) for c in m['glitch_signal']]}")
+    for key, got, want, sigma, z in rows:
+        check(math.isfinite(z) and z <= VAL_SIGMAS,
+              f"{key} {got} is {z:.2f} σ from JAX's {want} (σ {sigma})")
+    return {k: {"port": g, "jax": w, "sigma": s, "z": z}
+            for k, g, w, s, z in rows}
+
+
+def _ood_stats_check(ckpt: str, cfg, card):
+    """(v) the fitted ood_stats.npz against the release's shipped one, and
+    a training checkpoint served armed with it."""
+    from scipy.stats import ks_2samp
+
+    from posteriflow_torch.inference.pipeline import InferenceEngine
+    got = np.load(f"{ckpt}/ood_stats.npz")
+    ref = np.load(f"{RELEASE}/ood_stats.npz")
+    shapes = {k: (got[k].shape, ref[k].shape) for k in ref.files}
+    ks = ks_2samp(got["val_dists"], ref["val_dists"])
+    med, med_ref = float(np.median(got["val_dists"])), float(
+        np.median(ref["val_dists"]))
+    engine = InferenceEngine.from_checkpoint(ckpt, "best", device=DEVICE)
+    print(f"(v) ood_stats.npz keys {sorted(got.files)} (release "
+          f"{sorted(ref.files)}), shapes (port, release) {shapes}; val_dists"
+          f" against the release's: KS statistic {ks.statistic:.4f}, p "
+          f"{ks.pvalue:.4g} (> {OOD_KS_P:g}), medians {med:.4f} and "
+          f"{med_ref:.4f} ({med / med_ref - 1:+.4f}); from_checkpoint armed "
+          f"{engine.ood_stats is not None} [{card}]")
+    check(sorted(got.files) == sorted(ref.files),
+          f"ood_stats keys {got.files}")
+    check(all(a == b for a, b in shapes.values()),
+          f"ood_stats shapes {shapes}")
+    check(ks.pvalue > OOD_KS_P, f"val_dists KS p {ks.pvalue}")
+    check(abs(med / med_ref - 1.0) <= OOD_MEDIAN_REL,
+          f"val_dists median {med} against {med_ref}")
+    check(engine.ood_stats is not None
+          and engine.ood_stats.mean.shape == (cfg.npe.context_dim,),
+          "from_checkpoint did not arm the OOD stats")
+    return {"ks_p": float(ks.pvalue), "median": med, "median_ref": med_ref}
+
+
+def _validate(torch, plain, rqs_cuda, argv, expected, label, card):
+    """(v) one run of tools/validate_checkpoint with the launch counter
+    zeroed before and read after, and the plain spline counted."""
+    from posteriflow_torch.tools import validate_checkpoint
+    counts, restore = _count_plain(torch, plain)
+    rqs_cuda.KERNEL.launches = 0
+    try:
+        t0 = time.perf_counter()
+        code, report, record = validate_checkpoint.run(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = rqs_cuda.KERNEL.launches
+    secs = ", ".join(f"{k} {v:.2f}" for k, v in record["seconds"].items())
+    print(f"(v) tools/validate_checkpoint {label} [{card}]: exit {code}, "
+          f"{wall:.2f} s wall ({secs} s; the report's wall_time_s "
+          f"{report['metrics']['wall_time_s']}); rqs_tile launches "
+          f"{launches} (expected {expected}), plain spline calls {counts}; "
+          f"gates " + ", ".join(f"{c['gate']} {c['value']:.4f} "
+                                f"{'PASS' if c['passed'] else 'FAIL'}"
+                                for c in report["checks"]))
+    check(launches == expected,
+          f"validate_checkpoint launched rqs_tile {launches} times, "
+          f"expected {expected}")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"the plain spline ran in validate_checkpoint: {counts}")
+    return code, report, record, launches, wall
+
+
+def _twin_grid(torch, rqs_cuda, ckpt: str, tmp: str, card):
+    """(v) tools/twin_grid at its defaults against analysis/twin_grid.json:
+    the distances held, the biases printed."""
+    from posteriflow_torch.tools import twin_grid
+    with open(TWIN_REPORT) as f:
+        ref = json.load(f)
+    rqs_cuda.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    got = twin_grid.main(["--ckpt", ckpt, "--out", f"{tmp}/twin_grid.json",
+                          "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    launches = rqs_cuda.KERNEL.launches
+    pairs = list(zip(got["grid"], ref["grid"]))
+    rel = [abs(g["distance"] / r["distance"] - 1.0) for g, r in pairs]
+
+    def mean_abs(grid, key):
+        return float(np.mean([abs(c[key]) for c in grid]))
+    print(f"(v) tools/twin_grid {len(got['grid'])} points x 2 twins "
+          f"[{card}]: {wall:.2f} s, rqs_tile launches {launches}; distances "
+          f"(port/JAX) {[(round(g['distance'], 2), round(r['distance'], 2)) for g, r in pairs]}"
+          f", max relative gap {max(rel):.2e} (tol {TWIN_DIST_REL:g}); "
+          f"(mc_bias_frac_mean, q_bias_mean) port/JAX "
+          f"{[((round(g['mc_bias_frac_mean'], 3), round(g['q_bias_mean'], 3)), (round(r['mc_bias_frac_mean'], 3), round(r['q_bias_mean'], 3))) for g, r in pairs]}"
+          f"; mean |mc_bias_frac| {mean_abs(got['grid'], 'mc_bias_frac_mean'):.4f}"
+          f" (JAX {mean_abs(ref['grid'], 'mc_bias_frac_mean'):.4f}), mean "
+          f"|q_bias| {mean_abs(got['grid'], 'q_bias_mean'):.4f} (JAX "
+          f"{mean_abs(ref['grid'], 'q_bias_mean'):.4f}); q_attractor_band "
+          f"{got['q_attractor_band']} (JAX {ref['q_attractor_band']}); "
+          f"config hash {got['_meta'].get('config_hash')}")
+    check(len(pairs) == len(ref["grid"]) == len(got["grid"]),
+          f"twin grid has {len(got['grid'])} points")
+    check(all(g["mc"] == r["mc"] and abs(g["q"] - r["q"]) < 1e-12
+              for g, r in pairs), "twin grid points differ from JAX's")
+    check(max(rel) <= TWIN_DIST_REL, f"twin grid distances differ by {rel}")
+    check(all(math.isfinite(t[k]) for g in got["grid"] for t in g["twins"]
+              for k in ("mc_bias_frac", "q_bias")), "non-finite twin bias")
+    check(launches == 2 * len(got["grid"]) * 10,
+          f"twin_grid launched rqs_tile {launches} times")
+    return {"launches": launches, "seconds": wall}
+
+
+def _importance_cases(torch, rqs_cuda, ckpt: str, tmp: str, card):
+    """(v) tools/importance_validation on IV_CASES with --cross-check,
+    run_smc_prior capped at IS_SMC_STAGES."""
+    import functools
+
+    from posteriflow_torch.inference import importance as imp
+    from posteriflow_torch.tools import importance_validation as iv
+    with open(IV_REPORT) as f:
+        ref = json.load(f)
+    saved = imp.run_smc_prior
+    imp.run_smc_prior = functools.partial(saved, max_stages=IS_SMC_STAGES)
+    rqs_cuda.KERNEL.launches = 0
+    try:
+        t0 = time.perf_counter()
+        got = iv.main(["--ckpt", ckpt, "--cases", *IV_CASES,
+                       "--cross-check", "--no-warmup", "--out",
+                       f"{tmp}/importance_validation.json", "--device",
+                       DEVICE])
+        wall = time.perf_counter() - t0
+    finally:
+        imp.run_smc_prior = saved
+    launches = rqs_cuda.KERNEL.launches
+    for case in IV_CASES:
+        g, r = got[case], ref[case]
+        p = iv.CASES[case]
+        truth = (p["mass_1"] * p["mass_2"]) ** 0.6 / (
+            p["mass_1"] + p["mass_2"]) ** 0.2
+        print(f"(v) importance_validation {case} [{card}]: ESS {g['ess']} "
+              f"(JAX {r['ess']}), efficiency {g['efficiency']} "
+              f"({r['efficiency']}), stages {g['n_stages']} "
+              f"({r['n_stages']}), converged {g['converged']}, ladder "
+              f"{g['beta_ladder']} (JAX {r['beta_ladder']}), log Z "
+              f"{g['log_evidence_ratio']} ({r['log_evidence_ratio']}), "
+              f"corrected Mc median {g['corrected_mc_median']} (truth "
+              f"{truth:.3f}, JAX {r['corrected_mc_median']}), {g['wall_s']} "
+              f"s; smc_prior (capped at {IS_SMC_STAGES} stages) "
+              f"{g['smc_prior']['n_stages']} stages, converged "
+              f"{g['smc_prior']['converged']}, logz_gap_vs_flow_is "
+              f"{g['smc_prior']['logz_gap_vs_flow_is']} (JAX "
+              f"{r['smc_prior']['logz_gap_vs_flow_is']}), "
+              f"{g['smc_prior']['wall_s']} s")
+        check(g["converged"] and g["ess"] > 0,
+              f"{case}: converged {g['converged']}, ESS {g['ess']}")
+        check(abs(g["corrected_mc_median"] / truth - 1.0) <= IV_MC_REL,
+              f"{case}: corrected Mc median {g['corrected_mc_median']} "
+              f"against {truth}")
+    print(f"(v) importance_validation {len(IV_CASES)} cases: {wall:.2f} s, "
+          f"rqs_tile launches {launches} [{card}]")
+    return {"launches": launches, "seconds": wall}
+
+
+def phase_validate(torch, plain, rqs_cuda, cfg, card, bank_dir):
+    """(v) checkpoint validation of a port checkpoint of the flagship at
+    the JAX report's size, its OOD stats, the real-noise domain, the
+    spline at the validation shapes, the twin grid and the importance
+    battery."""
+    from posteriflow_torch.train.checkpoints import CheckpointManager
+    from posteriflow_torch.utils.provenance import artifact_meta
+    t_phase = time.perf_counter()
+    with open(VAL_REPORT) as f:
+        ref = json.load(f)
+    layers = cfg.npe.flow_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/ckpt"
+        CheckpointManager(ckpt).save("best", release_state(torch, cfg), cfg)
+        meta = artifact_meta(f"{ckpt}/best")
+        print(f"(v) port checkpoint of {RELEASE} under a temporary "
+              f"directory: config_hash {meta.get('config_hash')} (the "
+              f"report's {ref['_meta']['config_hash']})")
+        check(meta.get("config_hash") == VAL_HASH == ref["_meta"][
+            "config_hash"], f"config hash {meta.get('config_hash')}")
+
+        n_chunks = -(-VAL_EVENTS // VAL_CHUNK)
+        code, report, record, launches, wall = _validate(
+            torch, plain, rqs_cuda,
+            ["--ckpt", ckpt, "--n-events", str(VAL_EVENTS), "--n-post",
+             str(VAL_POST), "--out", f"{tmp}/val", "--device", DEVICE],
+            n_chunks * 5 * layers + VAL_REQUESTS * layers,
+            f"{VAL_EVENTS} x {VAL_POST}", card)
+        stats = _val_stats(record, report, ref, card)
+        checks = report["checks"]
+        check(code == 0 and report["passed"]
+              and len(checks) == 9 and all(c["passed"] for c in checks),
+              f"validation failed: exit {code}, "
+              f"{[c['gate'] for c in checks if not c['passed']]}")
+        check(report["metrics"]["n_events"] == VAL_EVENTS,
+              f"n_events {report['metrics']['n_events']}")
+        ood = _ood_stats_check(ckpt, cfg, card)
+
+        r_code, r_report, _, r_launches, r_wall = _validate(
+            torch, plain, rqs_cuda,
+            ["--ckpt", ckpt, "--n-events", str(VAL_REAL_EVENTS),
+             "--noise-bank", bank_dir, "--out", f"{tmp}/val_real",
+             "--device", DEVICE],
+            (5 + 3) * layers + VAL_REQUESTS * layers,
+            f"--noise-bank (u's synthetic bank) --n-events "
+            f"{VAL_REAL_EVENTS}", card)
+        rm = r_report["metrics"]
+        gates = [c["gate"] for c in r_report["checks"]]
+        print(f"(v) real-noise domain on the synthetic bank, a mechanics "
+              f"check (JAX's GWOSC bank is not committed) [{card}]: "
+              f"real_val_nll {rm['real_val_nll']:.4f}, real_dist_corr "
+              f"{rm['real_dist_corr']:.4f}, real_shuffle_delta_nll "
+              f"{rm['real_shuffle_delta_nll']:.4f}, real_gaussian_nll_gap "
+              f"{rm['real_gaussian_nll_gap']:.4f} (JAX on its bank "
+              f"{ref['metrics']['real_gaussian_nll_gap']:.4f}, not held); "
+              f"exit {r_code}")
+        check(all(math.isfinite(rm[k]) for k in (
+            "real_val_nll", "real_dist_corr", "real_shuffle_delta_nll")),
+            "non-finite real-noise metrics")
+        check("real_gaussian_nll_gap" in gates and len(gates) == 10,
+              f"real-noise run's gates {gates}")
+
+        timing = {}
+        for n, inverse in ((VAL_CHUNK * VAL_POST, True), (VAL_CHUNK, False)):
+            x, raw, bias = spline_inputs(torch, n, seed=n)
+            t = forward_timing(torch, plain, rqs_cuda, x, raw, bias,
+                               inverse=inverse)
+            timing[n] = t
+            print(f"(v) rqs_tile<{K_BINS}, "
+                  f"{'inverse' if inverse else 'forward'}, bias> at {n} rows"
+                  f" [{card}]: "
+                  + ("not measured" if t["ms"] is None
+                     else f"{t['ms'] * 1e3:.2f} us")
+                  + f" (profiler), {t['events_ms'] * 1e3:.2f} us by CUDA "
+                  f"events back to back, plain {t['plain_ms'] * 1e3:.1f} us;"
+                  f" bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: "
+                  f"{rqs_bytes(n, D_TR, K_BINS)} B)")
+
+        twin = _twin_grid(torch, rqs_cuda, ckpt, tmp, card)
+        iv = _importance_cases(torch, rqs_cuda, ckpt, tmp, card)
+    print(f"(v) phase done in {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
+    return {"launches": launches, "real_launches": r_launches,
+            "wall_s": wall, "real_wall_s": r_wall, "stats": stats,
+            "ood": ood, "timing": timing, "twin": twin, "iv": iv,
+            "seconds": record["seconds"]}
 
 
 def main() -> int:
@@ -2670,7 +2986,11 @@ def main() -> int:
         quality = phase_priority_quality(torch, card)
         print(f"(p)-(t) overlap phases done in "
               f"{time.perf_counter() - t0:.1f} s [{card}]")
-        bank = phase_bank(torch, plain, rqs_cuda, train_cfg, card, train)
+        with tempfile.TemporaryDirectory() as tmp:
+            bank = phase_bank(torch, plain, rqs_cuda, train_cfg, card, train,
+                              f"{tmp}/bank")
+            val = phase_validate(torch, plain, rqs_cuda, train_cfg, card,
+                                 f"{tmp}/bank")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2703,7 +3023,15 @@ def main() -> int:
                              f"train {FEED_STEPS} steps from the host feed "
                              f"(u)": bank["feed"]["launches"][0],
                              f"fit(bank=) 1 epoch x {BANK_FIT_STEPS} "
-                             f"steps (u)": bank["fit"]["launches"][0]},
+                             f"steps (u)": bank["fit"]["launches"][0],
+                             f"validate_checkpoint {VAL_EVENTS} x "
+                             f"{VAL_POST} (v)": val["launches"],
+                             f"validate_checkpoint --noise-bank "
+                             f"{VAL_REAL_EVENTS} (v)": val["real_launches"],
+                             "twin_grid 4 x 4 x 2 twins (v)":
+                                 val["twin"]["launches"],
+                             f"importance_validation {len(IV_CASES)} cases "
+                             f"(v)": val["iv"]["launches"]},
         "max_abs_err": max(errs["inverse"][0], errs["forward"][0]),
         "max_abs_err_logdet": max(errs["inverse"][1], errs["forward"][1]),
         "ms": k_ms, "plain_ms": p_ms,
@@ -2716,6 +3044,9 @@ def main() -> int:
         f"rows_{N_SAMPLES}": pod["timing"][N_SAMPLES],
         f"rows_{POD_EVENTS * POD_SAMPLES}":
             pod["timing"][POD_EVENTS * POD_SAMPLES],
+        f"rows_{VAL_CHUNK * VAL_POST}_inverse_bias":
+            val["timing"][VAL_CHUNK * VAL_POST],
+        f"rows_{VAL_CHUNK}_forward_bias": val["timing"][VAL_CHUNK],
         "library_ms": None,
     }, {
         "name": "rqs_grad<16, bias> (RQS spline backward, training)",
@@ -2764,7 +3095,8 @@ def main() -> int:
           f"{quality['eval']['close']:.4f}; training with the bank "
           f"{bank['steps']['steps_per_s']:.3f} steps/s, host feed wait "
           f"{max(bank['feed']['waits_ms'][1:]):.3f} ms a step at most "
-          f"after the first")
+          f"after the first; validation at {VAL_EVENTS} x {VAL_POST} "
+          f"{val['wall_s']:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

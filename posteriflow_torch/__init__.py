@@ -15,12 +15,17 @@ gate -> `PosteriorResult`.
     posteriflow_torch.train      release loader (flax msgpack -> state_dict),
                                  the NPE and PriorityNet trainers
     posteriflow_torch.inference  prepare_real, infer(), OOD, gating, result,
-                                 importance sampling, overlap ranking
+                                 plots, importance sampling, overlap ranking
     posteriflow_torch.core       subtract-and-reinfer decomposition
-    posteriflow_torch.evaluation anchor metrics, decomposition baselines
+    posteriflow_torch.evaluation bias, recovery, performance and comparison
+                                 metrics, result validation, noise analysis,
+                                 decomposition baselines
+    posteriflow_torch.tools      the command lines, checkpoint validation
+                                 (validate_checkpoint) among them
 
-The package imports torch, numpy and scipy only, so it runs on a machine
-that has none of the JAX stack.
+The package imports torch, numpy and scipy only (matplotlib and bilby
+inside the functions that draw or export), so it runs on a machine that
+has none of the JAX stack.
 """
 
 __version__ = "0.1.0"

@@ -7,9 +7,11 @@ summary carrying the refinement-gate verdict, corner/marginal/CDF plots,
 training→target prior reweighting with ESS, save() writing npy + csv +
 result.json with a git-commit reproducibility record.
 
-Port of posteriflow_tpu/inference/result.py without the matplotlib plots
-and the bilby object export (save_bilby writes the same JSON without
-bilby).
+Port of posteriflow_tpu/inference/result.py. matplotlib (the plots) and
+bilby (to_bilby) are imported only inside the methods that need them;
+save_bilby writes bilby's JSON without bilby. plot_marginals draws JAX's
+3 × 4 grid, grown to ⌈P/4⌉ rows where JAX's has too few axes and raises
+IndexError (the 15-D flagship).
 """
 
 from __future__ import annotations
@@ -19,11 +21,12 @@ import json
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from posteriflow_torch import PARAM_NAMES
+from posteriflow_torch.inference.plots import _mpl, _panel_grid
 
 
 @dataclasses.dataclass
@@ -104,6 +107,50 @@ class PosteriorResult:
                 lines.append(f"    - {r}")
         return "\n".join(lines)
 
+    # ── plots (matplotlib; corner-pkg optional like the reference) ───────────
+    def plot_corner(self, path, params: Optional[List[str]] = None):
+        plt = _mpl()
+        names = params or ["mass_1", "mass_2", "luminosity_distance",
+                           "theta_jn", "geocent_time"]
+        idx = [list(self.param_names).index(n) for n in names]
+        k = len(idx)
+        fig, axes = plt.subplots(k, k, figsize=(2.2 * k, 2.2 * k))
+        for a, i in enumerate(idx):
+            for b, j in enumerate(idx):
+                ax = axes[a, b]
+                if a < b:
+                    ax.axis("off")
+                elif a == b:
+                    ax.hist(self.samples[:, i], bins=40, color="#4477aa")
+                    ax.set_yticks([])
+                else:
+                    ax.hist2d(self.samples[:, j], self.samples[:, i],
+                              bins=40, cmap="Blues")
+                if a == k - 1:
+                    ax.set_xlabel(names[b], fontsize=8)
+                if b == 0 and a > 0:
+                    ax.set_ylabel(names[a], fontsize=8)
+        fig.tight_layout()
+        fig.savefig(path, dpi=110)
+        plt.close(fig)
+        return path
+
+    def plot_marginals(self, path):
+        plt = _mpl()
+        p = len(self.param_names)
+        fig, axes = _panel_grid(plt, p)
+        for j, name in enumerate(self.param_names):
+            ax = axes.flat[j]
+            ax.hist(self.samples[:, j], bins=50, color="#4477aa",
+                    density=True)
+            ax.set_title(name, fontsize=9)
+        for j in range(p, axes.size):
+            axes.flat[j].axis("off")
+        fig.tight_layout()
+        fig.savefig(path, dpi=110)
+        plt.close(fig)
+        return path
+
     # ── prior reweighting (training -> LVC uniform-mass) ─────────────────────
     def reweight_to_uniform_masses(self):
         """Importance-reweight training prior (flat-in-log masses) to the
@@ -118,6 +165,24 @@ class PosteriorResult:
         ess = float(1.0 / np.sum(w ** 2))
         out = dataclasses.replace(self, weights=w)
         return out, ess
+
+    def to_bilby(self, label: str = "posteriflow_torch"):
+        """Export as a bilby Result with ABSOLUTE-GPS geocent_time
+        (reference: result.py:148-179). Gated: bilby is optional."""
+        try:
+            import bilby
+            import pandas as pd
+        except ImportError as e:
+            raise ImportError("to_bilby() needs bilby (+pandas); use "
+                              "save() for the native export") from e
+        from posteriflow_torch.physics.constants import GPS_REF
+        df = pd.DataFrame(self.samples, columns=list(self.param_names))
+        df["geocent_time"] = df["geocent_time"] + (self.gps_time or GPS_REF)
+        if self.log_prob is not None:
+            df["log_likelihood"] = self.log_prob
+        return bilby.result.Result(
+            label=label, posterior=df,
+            search_parameter_keys=list(self.param_names))
 
     def save_bilby(self, path: str | Path, label: str = "posteriflow_torch"):
         """Write a bilby-Result-format JSON (the structure

@@ -25,10 +25,9 @@ normalized weights beside the samples (weights.npy). --n-signals > 1
 infers one posterior per rank (saved as rank0, rank1, ...), orders them
 with the released PriorityNet (or the loudness fallback when none is
 present) and writes ranking.json with the order and the scores.
+--plots (needs matplotlib) draws corner.png and marginals.png beside the
+samples, or rank{r}/corner.png for each rank of --n-signals > 1.
 Everything runs on --device (default cuda).
-
-Not ported yet, and refused with the ROADMAP item that will bring it:
---plots (the corner and marginal plots).
 """
 
 from __future__ import annotations
@@ -38,11 +37,6 @@ import json
 from pathlib import Path
 
 import numpy as np
-
-_NOT_PORTED = {
-    "--plots": "the corner and marginal plots are ROADMAP §1 item 2 "
-               "(plot_corner / plot_marginals)",
-}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -121,6 +115,8 @@ def _overlapping(args, engine, prepared):
     for r, res in enumerate(results):
         print(res.summary())
         res.save(out / f"rank{r}")
+        if args.plots:
+            res.plot_corner(out / f"rank{r}" / "corner.png")
     (out / "ranking.json").write_text(json.dumps({"order": order,
                                                   "scores": scores}))
     print(f"saved -> {out}")
@@ -128,10 +124,7 @@ def _overlapping(args, engine, prepared):
 
 
 def main(argv=None):
-    ap = _parser()
-    args = ap.parse_args(argv)
-    if args.plots:
-        ap.error(f"--plots is not ported yet: {_NOT_PORTED['--plots']}")
+    args = _parser().parse_args(argv)
 
     from posteriflow_torch.inference.importance import (
         importance_correct, make_marginalized_log_likelihood)
@@ -200,6 +193,9 @@ def main(argv=None):
             **is_res.diagnostics}
     print(res.summary())
     res.save(args.out)
+    if args.plots:
+        res.plot_corner(Path(args.out) / "corner.png")
+        res.plot_marginals(Path(args.out) / "marginals.png")
     print(f"saved -> {args.out}")
     return res
 

@@ -1,9 +1,10 @@
 """The anchor comparison and the command line of the importance slice:
 `run_comparison(sampler="smc_prior", importance=True)` on the JAX tests'
 TINY engine returns the JAX package's keys, and `tools/infer.py` serves
-and importance-corrects on the CPU, writing normalized weights, while
---plots, not yet ported, fails with the ROADMAP item that brings it and
---event raises the JAX package's ImportError without gwpy.
+and importance-corrects on the CPU, writing normalized weights, --plots
+draws the corner and marginal plots (one corner plot a rank with
+--n-signals), and --event raises the JAX package's ImportError without
+gwpy.
 
 The samplers run at test size on the CPU: run_smc_prior with 128
 particles and at most 3 stages, importance_correct at pad_block 64 or 128
@@ -126,13 +127,22 @@ def test_cli_strain_with_asd_override(release, tmp_path):
     assert not (out / "weights.npy").exists()
 
 
-def test_cli_refuses_paths_not_ported(capsys, tmp_path):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--ckpt", str(tmp_path), "--device", "cpu", "--inject",
-                  "--plots"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "is not ported yet" in err and "ROADMAP §1 item 2" in err
+@pytest.mark.parametrize("n_signals", [1, 2])
+def test_cli_plots_writes_corner_and_marginals(release, tmp_path,
+                                               n_signals):
+    """--plots draws what infer.py draws: corner.png and marginals.png
+    beside the samples, or rank{r}/corner.png for each rank."""
+    out = tmp_path / "plots"
+    cli.main(["--ckpt", str(release), "--inject", "--plots", "--device",
+              "cpu", "--n-samples", "64", "--n-signals", str(n_signals),
+              "--out", str(out)])
+    if n_signals == 1:
+        names = ["corner.png", "marginals.png"]
+    else:
+        names = [f"rank{r}/corner.png" for r in range(n_signals)]
+        assert not (out / "corner.png").exists()
+    for name in names:
+        assert (out / name).stat().st_size > 0, name
 
 
 def test_cli_event_raises_jax_import_error_without_gwpy(monkeypatch,

@@ -1,5 +1,6 @@
 """The port runs on a machine that has PyTorch, numpy and scipy but none of
-the JAX stack, msgpack, pyyaml, scikit-learn, ninja, h5py, gwpy or gwosc.
+the JAX stack, msgpack, pyyaml, scikit-learn, ninja, h5py, gwpy, gwosc,
+matplotlib, bilby or pandas.
 
 A subprocess blocks those imports with a sys.meta_path finder, imports
 every module of posteriflow_torch (the trainer, its tools and the OOD
@@ -10,8 +11,8 @@ request on an injection, importance-corrects it through one tempered stage
 TrainConfig at batch 2, and another on a batch of the flagship's SimConfig
 simulated with a synthetic noise bank. chip_smoke.py without a GPU exits
 non-zero, fast, with no result line. A scan of the sources checks what
-they import: h5py, gwpy and gwosc only inside the functions that need
-them, the rest nowhere.
+they import: h5py, gwpy, gwosc, matplotlib, bilby and pandas only inside
+the functions that need them (the plots, to_bilby), the rest nowhere.
 """
 
 import ast
@@ -25,9 +26,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "posteriflow_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "yaml",
-           "ninja", "sklearn", "posteriflow_tpu", "h5py", "gwpy", "gwosc")
+           "ninja", "sklearn", "posteriflow_tpu", "h5py", "gwpy", "gwosc",
+           "matplotlib", "bilby", "pandas")
 # imported by the port only inside the functions that need them
-OPTIONAL = ("h5py", "gwpy", "gwosc")
+OPTIONAL = ("h5py", "gwpy", "gwosc", "matplotlib", "bilby", "pandas")
 
 _CHILD = r"""
 import importlib, importlib.abc, json, pkgutil, sys
@@ -166,7 +168,11 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
         "core.pod", "evaluation.benchmarks", "tools.priority_eval",
         "tools.overlap_bench", "data", "data.noise_bank", "data.native_bank",
         "data.host_feed", "data.io", "data.gwtc", "data.snr_utils",
-        "tools.make_noise_bank")}
+        "tools.make_noise_bank", "utils.provenance", "utils.logging",
+        "evaluation", "evaluation.validation", "evaluation.noise_analysis",
+        "inference.plots", "tools.validate_checkpoint",
+        "tools.npe_diagnostics", "tools.twin_grid",
+        "tools.importance_validation")}
     assert expected <= set(out["modules"])
     assert out["shape"] == [64, 15] and out["finite"]
     assert out["verdict"] in ("HIGH", "MEDIUM", "LOW") and out["gate"]
@@ -215,9 +221,10 @@ def _walk_with_scope(tree):
 
 def test_sources_import_nothing_of_the_jax_stack():
     """No import of the JAX stack, msgpack, yaml, ninja or the JAX package,
-    by statement or by importlib, no import of h5py, gwpy or gwosc outside
-    a function, and no use of PyTorch's C++ extension loader. (Docstrings
-    may cite the JAX package's files by name.)"""
+    by statement or by importlib, no import of h5py, gwpy, gwosc,
+    matplotlib, bilby or pandas outside a function, and no use of
+    PyTorch's C++ extension loader. (Docstrings may cite the JAX package's
+    files by name.)"""
     bad = []
     for path in _python_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
