@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of posteriflow_torch: serve, train, importance-correct and
-decompose overlapping signals with the 15-D flagship release on one NVIDIA
-GPU through the hand-written CUDA RQS kernels (csrc/rqs.cu: rqs_tile, a
+decompose overlapping signals with the 15-D flagship release, and serve,
+validate and train the long-BNS models, on one NVIDIA GPU through the
+hand-written CUDA RQS kernels (csrc/rqs.cu: rqs_tile, a
 TMA bulk-copy ring of row tiles, one thread per spline, the conditioner's
 derivative bias added in the kernel; rqs_grad, its backward, K lanes a
 spline).
@@ -150,6 +151,29 @@ Phases (any failure exits non-zero and prints no result line):
       tools/importance_validation.py on two cases with --cross-check
       (converged, corrected Mc median within 2% of the truth). Every
       output goes to a temporary directory.
+  (w) the long-BNS family (models/long_bns.py). (w1) rqs_tile<12> and
+      rqs_grad<12> (16-lane groups): their registers and spills (none
+      allowed), rqs_tile<12> bit-equal to the plain spline at 50, 64, 641,
+      20,000 and 131,072 rows and rqs_tile<8> at v1's 50 and 12,800 (D =
+      5, both directions, with and without the bias), rqs_grad<12> within
+      1e-5 of the largest entry plus 1e-6 of the plain VJP at 64 and
+      131,072 rows; µs a launch beside the bound, the launch floor and the
+      plain version. (w2) long_bns_v4 served on its stored trigger grid: a
+      50-event batch from fixed draws, the NLL on signal and noise-only
+      tokens and sample_raw with z given, card against CPU within 1e-3,
+      exactly 18 rqs_tile launches, no plain spline. (w3)
+      tools/validate_long_bns.py at 2000 x 400 in chunks of 50: exit 0,
+      the seven v4 gates, 720 launches, val NLL, signal ΔNLL, mc_sharpen,
+      railing and distance correlation within 4σ of
+      reports/val_long_bns/report.json, the seconds by part. (w4)
+      tools/train_long_bns.py at the release's config (batch 64) from a
+      fresh init, 100 steps with an evaluation every 50: a falling NLL,
+      6 + 6 launches a step, no plain spline; 20 steps split by CUDA
+      events; one step's float32 gradients against the card's plain
+      spline (1e-4), the CPU (1e-2 a leaf) and the TF32 guard, as (m).
+      (w5) long_bns_v1: its NLL card against CPU on 8 events, its
+      validation at 250 x 256 in chunks of 50 beside its
+      calibration.json, 90 rqs_tile<8> launches.
   (e) the kernel table and the device as JSON lines; the last line is
       {"ok": true, "device": {...}}.
 Every time printed names the card and its power limit.
@@ -412,15 +436,15 @@ def phase_ptxas(rqs_cuda):
               f"K={K_BINS} instance spills: {i}")
 
 
-def spline_inputs(torch, n: int, seed: int):
+def spline_inputs(torch, n: int, seed: int, k: int = K_BINS, d: int = D_TR):
     """As the repo's Pallas parity test draws them: |x| up to 6 (tails
     beyond ±5), raw spline parameters N(0, 0.7²); a bias N(0, 0.5²) over
     all 3K-1 channels."""
     rng = np.random.default_rng(seed)
-    n_raw = 3 * K_BINS - 1
-    x = torch.from_numpy(np.clip(rng.standard_normal((n, D_TR)) * 2.5,
+    n_raw = 3 * k - 1
+    x = torch.from_numpy(np.clip(rng.standard_normal((n, d)) * 2.5,
                                  -6.0, 6.0).astype(np.float32)).to(DEVICE)
-    raw = torch.from_numpy((rng.standard_normal((n, D_TR, n_raw))
+    raw = torch.from_numpy((rng.standard_normal((n, d, n_raw))
                             * 0.7).astype(np.float32)).to(DEVICE)
     bias = torch.from_numpy((rng.standard_normal(n_raw) * 0.5)
                             .astype(np.float32)).to(DEVICE)
@@ -1131,25 +1155,25 @@ def grad_host_us(torch, rqs_cuda, x, raw, g_out, g_ld, bias) -> dict:
     return out
 
 
-def forward_timing(torch, plain, rqs_cuda, x, raw, bias, inverse=False):
+def forward_timing(torch, plain, rqs_cuda, x, raw, bias, inverse=False,
+                   k=K_BINS):
     """rqs_tile<K, forward (or inverse), bias> at x's row count: device
     time by the profiler, CUDA events over back-to-back launches, the plain
     version's time and the kernel's bound."""
-    n = x.shape[0]
+    n, d = x.shape
     raw2 = raw.reshape(n, -1)
 
     def fn():
-        return rqs_cuda.KERNEL.launch(x, raw2, K_BINS, TAIL, inverse,
-                                      bias=bias)
-    nbytes = rqs_bytes(n, D_TR, K_BINS)
-    nops = rqs_ops(n, D_TR, K_BINS)
+        return rqs_cuda.KERNEL.launch(x, raw2, k, TAIL, inverse, bias=bias)
+    nbytes = rqs_bytes(n, d, k)
+    nops = rqs_ops(n, d, k)
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOPS
     biased = raw + bias
     p_fn = plain.rqs_inverse if inverse else plain.rqs_forward
     return {"ms": kernel_device_ms(torch, fn, "rqs_tile"),
             "events_ms": cuda_time_ms(fn, reps=50),
             "plain_ms": cuda_time_ms(lambda: p_fn(
-                x, biased, K_BINS, TAIL), reps=5),
+                x, biased, k, TAIL), reps=5),
             "bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -1178,27 +1202,27 @@ def kernel_device_ms(torch, fn, name: str, reps: int = 20):
     return sum(e.self_device_time_total for e in evs) / count / 1e3
 
 
-def grad_inputs(torch, plain, n: int, k: int, seed: int):
+def grad_inputs(torch, plain, n: int, k: int, seed: int, d: int = D_TR):
     """Card inputs of the backward: x, raw as spline_inputs draws them at
     K, upstream g_out N(0, 1) and g_logdet N(0, 1) with every third row 0,
     a bias; the first rows put x on its own spline's knots, at ±B, just
     inside and just outside."""
     rng = np.random.default_rng(seed)
     r = 3 * k - 1
-    x = torch.from_numpy(np.clip(rng.standard_normal((n, D_TR)) * 2.5, -6.0,
+    x = torch.from_numpy(np.clip(rng.standard_normal((n, d)) * 2.5, -6.0,
                                  6.0).astype(np.float32)).to(DEVICE)
-    raw = torch.from_numpy((rng.standard_normal((n, D_TR, r)) * 0.7)
+    raw = torch.from_numpy((rng.standard_normal((n, d, r)) * 0.7)
                            .astype(np.float32)).to(DEVICE)
     bias = torch.from_numpy((rng.standard_normal(r) * 0.5)
                             .astype(np.float32)).to(DEVICE)
-    g_out = torch.from_numpy(rng.standard_normal((n, D_TR))
+    g_out = torch.from_numpy(rng.standard_normal((n, d))
                              .astype(np.float32)).to(DEVICE)
     g_ld = rng.standard_normal(n).astype(np.float32)
     g_ld[::3] = 0.0
     g_ld = torch.from_numpy(g_ld).to(DEVICE)
     xk, _, _ = plain._normalize_params(raw[:4] + bias, k, TAIL)
-    j = 1 + torch.arange(D_TR, device=DEVICE) % (k - 1)
-    x[:4] = torch.gather(xk, -1, j[None, :, None].expand(4, D_TR, 1))[..., 0]
+    j = 1 + torch.arange(d, device=DEVICE) % (k - 1)
+    x[:4] = torch.gather(xk, -1, j[None, :, None].expand(4, d, 1))[..., 0]
     edge = float(np.nextafter(np.float32(TAIL), np.float32(0)))
     x[4], x[5], x[6], x[7] = TAIL, -TAIL, edge, -float(
         np.nextafter(np.float32(TAIL), np.float32(10)))
@@ -2628,14 +2652,19 @@ def phase_bank(torch, plain, rqs_cuda, cfg, card, no_bank, bank_dir):
     return {"steps": steps, "feed": feed, "fit": fitted}
 
 
+def sigma_of_difference(per_chunk) -> float:
+    """σ of the difference of two estimates over as many events, from the
+    port's chunk-to-chunk spread: sd / √chunks, times √2."""
+    vals = np.asarray(per_chunk, dtype=np.float64)
+    return float(vals.std(ddof=1)) / math.sqrt(len(vals)) * math.sqrt(2.0)
+
+
 def _val_stats(record: dict, report: dict, ref: dict, card):
     """(v) each averaged statistic against the JAX report within
     VAL_SIGMAS σ of the difference of two estimates."""
-    n = len(record["chunks"])
     rows = []
     for key, per_chunk in VAL_STATS.items():
-        vals = np.array([c[per_chunk] for c in record["chunks"]])
-        sigma = float(vals.std(ddof=1)) / math.sqrt(n) * math.sqrt(2.0)
+        sigma = sigma_of_difference([c[per_chunk] for c in record["chunks"]])
         got, want = report["metrics"][key], ref["metrics"][key]
         rows.append((key, got, want, sigma, abs(got - want) / sigma))
     print(f"(v) statistics against {VAL_REPORT} (JAX, {ref['metrics']['n_events']}"
@@ -2904,6 +2933,617 @@ def phase_validate(torch, plain, rqs_cuda, cfg, card, bank_dir):
             "seconds": record["seconds"]}
 
 
+# (w) the long-BNS family. Its flows transform LB_D = 11 - 6 dimensions.
+# long_bns_v4's spline has LB_K = 12 bins, long_bns_v1's LB_V1_K = 8.
+# rqs_tile bit-equal to the plain spline at LB_ROWS (w1): v4's validation
+# NLL (50 events), a training batch (64), a ragged tile, v4's sampling
+# (50 x 400) and a sampling-sized check; v1's at LB_V1_ROWS. rqs_grad<12>
+# against the plain VJP at LB_GRAD_ROWS at (l)'s tolerance.
+LB_D, LB_K, LB_V1_K = 5, 12, 8
+LB_ROWS = (50, 64, 641, 20000, 131072)
+LB_GRAD_ROWS = (64, 131072)
+
+
+def phase_lb_kernels(torch, plain, rqs_cuda, card, v1_rows):
+    """(w1) the K = 12 instances' registers and spills (none allowed);
+    rqs_tile<12> bit-equal to the plain spline at LB_ROWS and rqs_tile<8>
+    at v1's shapes, both directions, with and without the bias; rqs_grad<12>
+    against the plain VJP at LB_GRAD_ROWS; the times a launch at the
+    long-BNS shapes beside the bound, the launch floor and the plain
+    version."""
+    log = rqs_cuda.KERNEL.build_log
+    for kernel, n_inst in (("rqs_tile", 4), ("rqs_grad", 2)):
+        insts = [i for i in rqs_cuda.ptxas_instances(log, kernel)
+                 if i["k"] == LB_K]
+        check(len(insts) == n_inst,
+              f"ptxas reported {len(insts)} {kernel}<{LB_K}> instances")
+        for i in insts:
+            kind = ("" if "inverse" not in i else
+                    ("inverse, " if i["inverse"] else "forward, "))
+            print(f"(w1) ptxas: {kernel}<{LB_K}, {kind}"
+                  f"{'bias' if i['bias'] else 'no bias'}>: "
+                  f"{i['registers']} registers, {i['stack']} B stack, "
+                  f"{i['spill_stores']} B spill stores, {i['spill_loads']} "
+                  f"B spill loads")
+            check(i["spill_stores"] == 0 and i["spill_loads"] == 0,
+                  f"{kernel}<{LB_K}> spills: {i}")
+    shapes = [(n, LB_K) for n in LB_ROWS] + [(n, LB_V1_K) for n in v1_rows]
+    tile_err = {LB_K: 0.0, LB_V1_K: 0.0}
+    for n, k in shapes:
+        x, raw, bias = spline_inputs(torch, n, seed=n + k, k=k, d=LB_D)
+        for b in (None, bias):
+            for inverse in (False, True):
+                k_out, k_ld = rqs_cuda.KERNEL.launch(
+                    x, raw.reshape(n, -1), k, TAIL, inverse, bias=b)
+                p_fn = plain.rqs_inverse if inverse else plain.rqs_forward
+                p_out, p_ld = p_fn(x, raw if b is None else raw + b, k, TAIL)
+                torch.cuda.synchronize()
+                e_out = float((k_out - p_out).abs().max())
+                e_ld = float((k_ld - p_ld).abs().max())
+                print(f"(w1) rqs_tile<{k}, "
+                      f"{'inverse' if inverse else 'forward'}, "
+                      f"{'bias' if b is not None else 'no bias'}> N={n} "
+                      f"D={LB_D}: max|Δout| {e_out:.3e}, max|Δlogdet| "
+                      f"{e_ld:.3e} (tol 0)")
+                check(e_out == 0.0 and e_ld == 0.0,
+                      f"rqs_tile<{k}> N={n} inverse={inverse} bias="
+                      f"{b is not None} differs from the plain spline: "
+                      f"{e_out}, {e_ld}")
+                tile_err[k] = max(tile_err[k], e_out, e_ld)
+    worst = {"abs": 0.0, "rel": 0.0}
+    for n in LB_GRAD_ROWS:
+        x, raw, g_out, g_ld, bias = grad_inputs(torch, plain, n, LB_K,
+                                                seed=n + 3, d=LB_D)
+        for b in (None, bias):
+            ref = plain.rqs_forward_vjp(x, raw, g_out, g_ld, LB_K, TAIL,
+                                        bias=b)
+            got = rqs_cuda.GRAD_KERNEL.launch(x, raw.reshape(n, -1), g_out,
+                                              g_ld, LB_K, TAIL, b)
+            torch.cuda.synchronize()
+            errs = [grad_err(got[0], ref[0]),
+                    grad_err(got[1].reshape(ref[1].shape), ref[1])]
+            d_abs = max(float((got[0] - ref[0]).abs().max()),
+                        float((got[1].reshape(ref[1].shape)
+                               - ref[1]).abs().max()))
+            worst["abs"] = max(worst["abs"], d_abs)
+            worst["rel"] = max(worst["rel"], *errs)
+            print(f"(w1) rqs_grad<{LB_K}, "
+                  f"{'bias' if b is not None else 'no bias'}> N={n} "
+                  f"D={LB_D}: g_x {errs[0]:.2e}, g_raw {errs[1]:.2e} of the "
+                  f"largest entry (tol {GRAD_REL:g} + {GRAD_ABS:g}); "
+                  f"max|Δ| {d_abs:.3e}")
+            check(all(math.isfinite(e) and e <= GRAD_REL for e in errs),
+                  f"rqs_grad<{LB_K}> N={n} bias={b is not None}: {errs}")
+    floor_ms = kernel_device_ms(torch, lambda: torch.zeros(1, device=DEVICE),
+                                "")
+    times = {}
+    for n, k, inverse in ((50, LB_K, False), (64, LB_K, False),
+                          (20000, LB_K, True), (v1_rows[0], LB_V1_K, False),
+                          (v1_rows[1], LB_V1_K, True)):
+        x, raw, bias = spline_inputs(torch, n, seed=n, k=k, d=LB_D)
+        t = forward_timing(torch, plain, rqs_cuda, x, raw, bias,
+                           inverse=inverse, k=k)
+        times[(n, k, inverse)] = t
+        print(f"(w1) rqs_tile<{k}, {'inverse' if inverse else 'forward'}, "
+              f"bias> N={n} D={LB_D} [{card}]: device time a launch "
+              + ("not measured" if t["ms"] is None
+                 else f"{t['ms'] * 1e3:.2f} us")
+              + f" (profiler), {t['events_ms'] * 1e3:.2f} us by CUDA events "
+              f"over back-to-back launches, plain {t['plain_ms'] * 1e3:.1f} "
+              f"us; bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
+              f"{rqs_bytes(n, LB_D, k)} B); launch floor "
+              + ("not measured" if floor_ms is None
+                 else f"{floor_ms * 1e3:.2f} us"))
+    n = LB_GRAD_ROWS[0]
+    x, raw, g_out, g_ld, bias = grad_inputs(torch, plain, n, LB_K, seed=9,
+                                            d=LB_D)
+    raw2 = raw.reshape(n, -1)
+
+    def grad_fn():
+        return rqs_cuda.GRAD_KERNEL.launch(x, raw2, g_out, g_ld, LB_K, TAIL,
+                                           bias)
+    nbytes, nops = rqs_grad_bytes(n, LB_D, LB_K), rqs_grad_ops(n, LB_D, LB_K)
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOPS
+    g = {"ms": kernel_device_ms(torch, grad_fn, "rqs_grad"),
+         "events_ms": cuda_time_ms(grad_fn, reps=50),
+         "plain_ms": cuda_time_ms(lambda: plain.rqs_forward_vjp(
+             x, raw, g_out, g_ld, LB_K, TAIL, bias=bias), reps=5),
+         "bound_ms": max(by_bytes, by_ops) * 1e3,
+         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+         "max_abs_err": worst["abs"], "max_rel_err": worst["rel"]}
+    print(f"(w1) rqs_grad<{LB_K}, bias> N={n} D={LB_D} [{card}]: device "
+          f"time a launch "
+          + ("not measured" if g["ms"] is None else f"{g['ms'] * 1e3:.2f} us")
+          + f" (profiler), {g['events_ms'] * 1e3:.2f} us by CUDA events, "
+          f"plain VJP {g['plain_ms'] * 1e3:.1f} us; bound "
+          f"{g['bound_ms'] * 1e3:.3f} us ({g['bound_by']}: {nbytes} B)")
+    return {"times": times, "grad": g, "launch_floor_ms": floor_ms,
+            "tile_err": tile_err}
+
+
+# (w2)-(w5): long_bns_v4 served (a LB_SERVE_EVENTS-event batch from fixed
+# draws), validated at reports/val_long_bns/report.json's own 2000 x 400 in
+# chunks of 50, trained LB_TRAIN_STEPS steps at its batch of 64 with an
+# evaluation every LB_TRAIN_EVAL; long_bns_v1 card vs CPU on LB_V1_PARITY
+# events (its 2048-token attention is slow on the CPU) and validated at
+# LB_V1_EVENTS x LB_V1_POST in chunks of LB_V1_CHUNK (near its
+# calibration.json's 256 x 256; the float32 scores of a chunk take 6.7 GB).
+# The card against the CPU within LB_SERVE_TOL, relative to the larger of 1
+# and the largest |value| (phase c's 1e-3); the statistics within
+# VAL_SIGMAS σ of the JAX report, σ from the port's chunks as in (v).
+LB_RELEASE, LB_V1_RELEASE = "model_release/long_bns_v4", \
+    "model_release/long_bns_v1"
+LB_REPORT = "reports/val_long_bns/report.json"
+LB_SERVE_EVENTS, LB_SERVE_DRAWS, LB_SERVE_TOL = 50, 400, 1e-3
+LB_SERVE_REPS = 5           # warm requests timed after the counted one
+LB_EVENTS, LB_POST, LB_CHUNK = 2000, 400, 50
+LB_STATS = {"val_nll": "nll", "signal_delta_nll": "delta",
+            "mc_sharpen": "mc_sharpen", "spurious_railing": "railing",
+            "dist_corr": "dist_corr"}
+LB_TRAIN_STEPS, LB_TRAIN_EVAL, LB_TRAIN_BATCH = 100, 50, 64
+LB_TIMED_STEPS = 20
+LB_V1_PARITY, LB_V1_EVENTS, LB_V1_POST, LB_V1_CHUNK = 8, 250, 256, 50
+
+
+def _lb_release(torch, path, device):
+    from posteriflow_torch.train.checkpoints import load_long_bns
+    model, cal, grid = load_long_bns(path, device=device)
+    model.eval()
+    return model, cal, grid
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over the larger of 1 and the largest |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+
+def _f32_conditioners(torch, model):
+    """The flow's conditioners switched to float32 matmuls (as (c) and (m)
+    hold the flagship in float32)."""
+    from posteriflow_torch.models.flow import Conditioner
+    for mod in model.modules():
+        if isinstance(mod, Conditioner):
+            mod.compute_dtype = torch.float32
+    return model
+
+
+def _lb_request(torch, model, grid, draws, z):
+    """One v4 request on given draws: the tokens with and without the
+    signal, the per-event NLL on both (the model's forward is their mean),
+    sample_raw with z given; also the labels and both contexts."""
+    from posteriflow_torch.models import long_bns as lb
+    with torch.no_grad():
+        tok, theta, trig = lb.simulate_long_bns_v4_from_draws(draws, grid)
+        tok0, _, _ = lb.simulate_long_bns_v4_from_draws(draws, grid, 0.0)
+        y_lab = model.scaler.normalize(theta, trig)
+        ctx, ctx0 = model.context(tok, trig), model.context(tok0, trig)
+        nll = -model.flow.log_prob(y_lab, ctx)
+        nll0 = -model.flow.log_prob(y_lab, ctx0)
+        th_s, y = model.sample_raw(tok, trig, z=z)
+    return {k: v.cpu().numpy() for k, v in (
+        ("tok", tok), ("y_lab", y_lab), ("ctx", ctx), ("ctx0", ctx0),
+        ("nll", nll), ("nll0", nll0), ("y", y), ("theta", th_s))}
+
+
+def _lb_flow_on(torch, flow, y_lab, ctx, ctx0, z, dev):
+    """The flow alone on given labels and contexts: (NLL, noise-only NLL,
+    draws y from z)."""
+    t = [torch.from_numpy(a).to(dev) for a in (y_lab, ctx, ctx0)]
+    with torch.no_grad():
+        y, _ = flow.sample_with_log_prob(z, t[1][:, None, :])
+        return {"nll": (-flow.log_prob(t[0], t[1])).cpu().numpy(),
+                "nll0": (-flow.log_prob(t[0], t[2])).cpu().numpy(),
+                "y": y.cpu().numpy()}
+
+
+def phase_lb_serve(torch, plain, rqs_cuda, card):
+    """(w2) long_bns_v4 served on its stored grid: one request of
+    LB_SERVE_EVENTS events from fixed draws (made on the CPU), timed warm
+    on the host clock (its outputs come back to the host): the counted
+    request and LB_SERVE_REPS more after it, each printed; the NLL on
+    the signal tokens and on the noise-only tokens, sample_raw with z
+    given; exactly 18 rqs_tile launches (6 + 6 forward, 6 inverse) and no
+    plain spline. Card against CPU as (c) holds the flagship: the tokens
+    within LB_SERVE_TOL of their largest |value|; as released (bfloat16
+    conditioners) the median per-event |ΔNLL| within 0.1 nat and the
+    median |Δy| within one bfloat16 step; the contexts within LB_SERVE_TOL
+    of their largest |entry|; with float32 conditioners, both flows on the
+    CPU's labels and contexts (as (c) runs both on one context: the float32
+    chirp phase of the heterodyne and the waveform differs by a few steps
+    between the devices, which moves the tokens by ~6e-4 of their largest
+    value, and a sampled draw at a steep point of a trained spline carries
+    a context's last bits to ~2e-3), the mean NLLs within LB_SERVE_TOL
+    (relative to the larger of 1 and the NLL) and the largest |Δy| within
+    LB_SERVE_TOL."""
+    from posteriflow_torch.models import long_bns as lb
+    out = {}
+    for dev in ("cpu", DEVICE):
+        model, cal, grid = _lb_release(torch, LB_RELEASE, dev)
+        draws = lb.draw_long_bns(LB_SERVE_EVENTS, grid["cut"], grid["trunc"],
+                                 torch.Generator().manual_seed(21), "cpu")
+        draws = lb.LongBNSDraws(*(t.to(dev) for t in draws))
+        z = torch.from_numpy(np.random.default_rng(22).standard_normal(
+            (LB_SERVE_EVENTS, LB_SERVE_DRAWS, 11)).astype(np.float32)).to(dev)
+        _lb_request(torch, model, grid, draws, z)        # warm-up
+        counts, restore = _count_plain(torch, plain)
+        rqs_cuda.KERNEL.launches = 0
+        try:
+            t0 = time.perf_counter()
+            r = _lb_request(torch, model, grid, draws, z)   # synchronises
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        launches = rqs_cuda.KERNEL.launches
+        walls = [wall]
+        for _ in range(LB_SERVE_REPS if dev != "cpu" else 0):
+            t0 = time.perf_counter()
+            _lb_request(torch, model, grid, draws, z)
+            walls.append(time.perf_counter() - t0)
+        ref = out.get("cpu", r)
+        r.update(wall=wall, launches=launches, plain=dict(counts),
+                 f32=_lb_flow_on(torch, _f32_conditioners(torch, model).flow,
+                                 ref["y_lab"], ref["ctx"], ref["ctx0"], z,
+                                 dev))
+        out[dev] = r
+        print(f"(w2) long_bns_v4 on {dev}: {LB_SERVE_EVENTS} events, tokens "
+              f"{r['tok'].shape} (grid "
+              f"{lb.stored_grid_path(cal['tokens']).name}, n_tok "
+              f"{grid['n_tok']}), NLL {r['nll'].mean():.5f}, noise-only NLL "
+              f"{r['nll0'].mean():.5f} (signal ΔNLL "
+              f"{r['nll0'].mean() - r['nll'].mean():.4f}), {LB_SERVE_DRAWS} "
+              f"draws an event, {wall * 1e3:.1f} ms (warm requests "
+              f"{[round(w * 1e3, 1) for w in walls]} ms, median "
+              f"{np.median(walls) * 1e3:.1f}) [{card}]; rqs_tile "
+              f"launches {r['launches']}, plain spline {r['plain']}")
+    g, c = out[DEVICE], out["cpu"]
+    check(g["launches"] == 18, f"(w2) rqs_tile launched {g['launches']} "
+                               f"times, expected 18 (6 + 6 + 6)")
+    check(g["plain"] == {"forward": 0, "inverse": 0},
+          f"(w2) the plain spline ran on the card: {g['plain']}")
+    check(all(np.isfinite(g[k]).all() for k in ("tok", "nll", "nll0", "y",
+                                                "theta")),
+          "(w2) non-finite output on the card")
+    gf, cf = g["f32"], c["f32"]
+    errs = {"tokens": (_rel(g["tok"], c["tok"]), LB_SERVE_TOL),
+            "contexts": (max(_rel(g["ctx"], c["ctx"]),
+                             _rel(g["ctx0"], c["ctx0"])), LB_SERVE_TOL),
+            "bf16 NLL, median per event": (float(np.median(np.abs(
+                g["nll"] - c["nll"]))), 0.1),
+            "bf16 noise-only NLL, median per event": (float(np.median(
+                np.abs(g["nll0"] - c["nll0"]))), 0.1),
+            "bf16 y, median": (float(np.median(np.abs(g["y"] - c["y"]))),
+                               2.0 ** -8),
+            "f32 NLL": (_rel(gf["nll"].mean(), cf["nll"].mean()),
+                        LB_SERVE_TOL),
+            "f32 noise-only NLL": (_rel(gf["nll0"].mean(),
+                                        cf["nll0"].mean()), LB_SERVE_TOL),
+            "f32 y, max": (float(np.abs(gf["y"] - cf["y"]).max()),
+                           LB_SERVE_TOL)}
+    print(f"(w2) card vs CPU [{card}]: " + "; ".join(
+        f"{k} {v:.3e} (tol {t:g})" for k, (v, t) in errs.items())
+        + f"; bf16 mean NLL {_rel(g['nll'].mean(), c['nll'].mean()):.3e}, "
+        f"noise-only {_rel(g['nll0'].mean(), c['nll0'].mean()):.3e}, "
+        f"max |Δy| {np.abs(g['y'] - c['y']).max():.3e} (reported)")
+    for k, (v, t) in errs.items():
+        check(v <= t, f"(w2) {k} card vs CPU differs by {v}")
+    return {"launches": g["launches"],
+            "errs": {k: v for k, (v, _) in errs.items()}, "wall": g["wall"]}
+
+
+def phase_lb_validate(torch, plain, rqs_cuda, card):
+    """(w3) tools/validate_long_bns.py on long_bns_v4 at 2000 x 400 in
+    chunks of 50: exit 0, the seven gates, exactly 720 rqs_tile launches,
+    no plain spline, the statistics within VAL_SIGMAS σ of the JAX report,
+    the seconds by part."""
+    from posteriflow_torch.tools import validate_long_bns
+    ref = json.loads(open(LB_REPORT).read())["metrics"]
+    counts, restore = _count_plain(torch, plain)
+    rqs_cuda.KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            code, report, record = validate_long_bns.run(
+                ["--model", LB_RELEASE, "--n-events", str(LB_EVENTS),
+                 "--n-post", str(LB_POST), "--chunk", str(LB_CHUNK),
+                 "--device", DEVICE, "--out", tmp])
+            wall = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = rqs_cuda.KERNEL.launches
+    m = report["metrics"]
+    n_chunks = LB_EVENTS // LB_CHUNK
+    secs = ", ".join(f"{k} {v:.3f}" for k, v in record["seconds"].items())
+    print(f"(w3) validate_long_bns {LB_EVENTS} x {LB_POST}, chunks of "
+          f"{LB_CHUNK}: exit {code} in {wall:.2f} s [{card}] ({secs} s); "
+          f"rqs_tile launches {launches} (expected {18 * n_chunks}); plain "
+          f"spline {dict(counts)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    for c in report["checks"]:
+        print(f"(w3)   {c['gate']:<18} {c['value']:.4f} {c['op']} "
+              f"{c['threshold']:.4g}: {'PASS' if c['passed'] else 'FAIL'}")
+    check(code == 0 and report["passed"], "(w3) long_bns_v4 failed its "
+                                          "gates on the card")
+    check(len(report["checks"]) == 7, "(w3) not the seven v4 gates")
+    check(launches == 18 * n_chunks, f"(w3) rqs_tile launched {launches} "
+                                     f"times, expected {18 * n_chunks}")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"(w3) the plain spline ran: {counts}")
+    stats = {}
+    for name, key in LB_STATS.items():
+        sigma = sigma_of_difference(
+            [c[key] if key != "delta" else c["nll_alt"] - c["nll"]
+             for c in record["chunks"]])
+        z = (m[name] - ref[name]) / sigma
+        stats[name] = (m[name], ref[name], sigma, z)
+        print(f"(w3)   {name}: {m[name]:.5f} against the JAX report's "
+              f"{ref[name]:.5f} ({z:+.2f}σ, σ {sigma:.5f})")
+        check(abs(z) <= VAL_SIGMAS, f"(w3) {name} {m[name]} is {z:.2f}σ "
+                                    f"from the JAX report's {ref[name]}")
+    print(f"(w3)   coverage violations {m['cov50_violations']}/"
+          f"{m['cov90_violations']} (JAX {ref['cov50_violations']}/"
+          f"{ref['cov90_violations']}), SBC pass {m['sbc_pass_frac']:.3f} "
+          f"(KS p {min(m['sbc_ks_p'].values()):.3g}-"
+          f"{max(m['sbc_ks_p'].values()):.3g}; JAX "
+          f"{min(ref['sbc_ks_p'].values()):.3g}-"
+          f"{max(ref['sbc_ks_p'].values()):.3g})")
+    return {"launches": launches, "wall": wall, "stats": stats,
+            "seconds": record["seconds"]}
+
+
+def _lb_grads(torch, plain, rqs_cuda, model_sd, batch, dev, switches,
+              plain_spline=False, unguarded=False):
+    """One full-width v4 loss and its gradient with the flow's conditioners
+    in float32 (as (m) holds the flagship): (loss, grads by name, rqs_grad
+    launches)."""
+    import contextlib
+
+    from posteriflow_torch.models import long_bns as lb
+    from posteriflow_torch.train import trainer
+    kernel_fwd, guard = rqs_cuda.rqs_forward, trainer.fp32_exact
+    _set_switches(torch, switches)
+    if plain_spline:
+        rqs_cuda.rqs_forward = (lambda x, r, k, tb=TAIL, bias=None:
+                                plain.rqs_forward(x, r + bias, k, tb))
+    if unguarded:
+        trainer.fp32_exact = contextlib.nullcontext
+    try:
+        model = lb.LongBNSNPEv4(enc={"d_model": 128, "n_layers": 4,
+                                     "n_heads": 8, "patch": 4})
+        model.load_state_dict(model_sd, strict=True)
+        _f32_conditioners(torch, model).to(dev)
+        g0 = rqs_cuda.GRAD_KERNEL.launches
+        loss = model(*(t.to(dev) for t in batch))
+        trainer.backward(loss)
+        launched = rqs_cuda.GRAD_KERNEL.launches - g0
+    finally:
+        rqs_cuda.rqs_forward, trainer.fp32_exact = kernel_fwd, guard
+    return (float(loss.detach()),
+            {n: p.grad.cpu() for n, p in model.named_parameters()}, launched)
+
+
+def phase_lb_train(torch, plain, rqs_cuda, card):
+    """(w4) tools/train_long_bns.py at the release's config (batch 64, the
+    stored grid) from a fresh init for LB_TRAIN_STEPS steps with an
+    evaluation every LB_TRAIN_EVAL: the NLL falls, the launches are 6
+    forward and 6 backward a step (plus the evaluations' and the
+    calibration battery's forward passes), the plain spline never runs;
+    then LB_TIMED_STEPS steps split by CUDA events; then one step's
+    gradients at full width (float32 conditioners, the release's weights)
+    against the card's plain spline, the CPU and the TF32 guard."""
+    from posteriflow_torch.models import long_bns as lb
+    from posteriflow_torch.tools import train_long_bns as tool
+    from posteriflow_torch.train import trainer
+    counts, restore = _count_plain(torch, plain)
+    rqs_cuda.KERNEL.launches = rqs_cuda.GRAD_KERNEL.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            history, cal, run = tool.run_training(
+                ["--outdir", tmp, "--steps", str(LB_TRAIN_STEPS),
+                 "--batch", str(LB_TRAIN_BATCH), "--eval-every",
+                 str(LB_TRAIN_EVAL), "--device", DEVICE])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        restore()
+    fwd, bwd = rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches
+    n_eval = len(history)
+    n_cal = max(1, 256 // LB_TRAIN_BATCH)
+    want_fwd = 6 * LB_TRAIN_STEPS + 12 * n_eval + 6 * n_cal
+    print(f"(w4) train_long_bns {LB_TRAIN_STEPS} steps at batch "
+          f"{LB_TRAIN_BATCH} (grid n_tok {run.grid['n_tok']}, "
+          f"{cal['config']['n_params']} parameters) in {wall:.2f} s "
+          f"[{card}]: history "
+          + ", ".join(f"step {h['step']} train {h['train_nll']:.3f} val "
+                      f"{h['val_nll']:.3f} ΔNLL {h['signal_delta']:.3f}"
+                      for h in history)
+          + f"; rqs_tile {fwd} (expected {want_fwd}: 6 a step, 12 an "
+          f"evaluation, 6 a calibration chunk), rqs_grad {bwd} (expected "
+          f"{6 * LB_TRAIN_STEPS}); plain spline {dict(counts)}; calibration "
+          f"cov violations {cal['cov50_violations']}/"
+          f"{cal['cov90_violations']}, SBC {cal['sbc_pass_frac']:.3f}")
+    check(fwd == want_fwd and bwd == 6 * LB_TRAIN_STEPS,
+          f"(w4) launches {fwd} / {bwd}")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"(w4) the plain spline ran: {counts}")
+    check([h["step"] for h in history] == [1, LB_TRAIN_EVAL, LB_TRAIN_STEPS],
+          f"(w4) history steps {[h['step'] for h in history]}")
+    check(all(math.isfinite(h["train_nll"]) and math.isfinite(h["val_nll"])
+              for h in history), "(w4) non-finite NLL")
+    check(history[-1]["train_nll"] < history[0]["train_nll"]
+          and history[-1]["val_nll"] < history[0]["val_nll"],
+          "(w4) the NLL did not fall")
+
+    # the step split by CUDA events, launches a step
+    args = tool._parser().parse_args(["--batch", str(LB_TRAIN_BATCH),
+                                      "--steps", str(LB_TRAIN_STEPS)])
+    timed = tool.setup(args, torch.device(DEVICE))
+    ev = {k: [] for k in ("simulate", "forward", "backward", "optimizer")}
+    per_step = []
+    t_wall = None
+    for i in range(LB_TIMED_STEPS + 1):
+        if i == 1:
+            torch.cuda.synchronize()
+            t_wall = time.perf_counter()
+        gen = torch.Generator(device=DEVICE).manual_seed(1000 + i)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        f0, b0 = rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches
+        marks[0].record()
+        batch = timed.batch_fn(gen)
+        marks[1].record()
+        loss = timed.model(*batch)
+        marks[2].record()
+        timed.opt.zero_grad()
+        trainer.backward(loss)
+        marks[3].record()
+        timed.opt.step()
+        marks[4].record()
+        per_step.append((rqs_cuda.KERNEL.launches - f0,
+                         rqs_cuda.GRAD_KERNEL.launches - b0))
+        if i:
+            torch.cuda.synchronize()
+            for k, a, b in zip(ev, marks[:-1], marks[1:]):
+                ev[k].append(a.elapsed_time(b))
+    torch.cuda.synchronize()
+    steps_per_s = LB_TIMED_STEPS / (time.perf_counter() - t_wall)
+    split = {k: float(np.median(v)) for k, v in ev.items()}
+    print(f"(w4) {LB_TIMED_STEPS} steps at batch {LB_TRAIN_BATCH} "
+          f"[{card}]: {steps_per_s:.2f} steps/s (host clock, a "
+          f"synchronisation a step for the events), medians by CUDA events: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+          + f"; launches a step {sorted(set(per_step))}")
+    check(set(per_step) == {(6, 6)}, f"(w4) launches a step {per_step}")
+
+    # one step's gradients at full width
+    rel, _, _ = _lb_release(torch, LB_RELEASE, "cpu")
+    model_sd = rel.state_dict()
+    batch = lb.simulate_long_bns_batch_v4(
+        LB_TRAIN_BATCH, timed.grid,
+        generator=torch.Generator().manual_seed(23), device="cpu")
+    defaults, tf32, off = ("highest", True), ("high", True), ("highest", False)
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    try:
+        runs = {"kernels": _lb_grads(torch, plain, rqs_cuda, model_sd, batch,
+                                     DEVICE, defaults),
+                "plain on the card": _lb_grads(torch, plain, rqs_cuda,
+                                               model_sd, batch, DEVICE,
+                                               defaults, plain_spline=True),
+                "cpu": _lb_grads(torch, plain, rqs_cuda, model_sd, batch,
+                                 "cpu", defaults),
+                "kernels, TF32 off": _lb_grads(torch, plain, rqs_cuda,
+                                               model_sd, batch, DEVICE, off),
+                "kernels, TF32 allowed": _lb_grads(torch, plain, rqs_cuda,
+                                                   model_sd, batch, DEVICE,
+                                                   tf32),
+                "control: backward unguarded, TF32 allowed": _lb_grads(
+                    torch, plain, rqs_cuda, model_sd, batch, DEVICE, tf32,
+                    unguarded=True)}
+    finally:
+        _set_switches(torch, saved)
+    check(runs["kernels"][2] == 6 and runs["plain on the card"][2] == 0,
+          f"(w4) backward launches {runs['kernels'][2]} / "
+          f"{runs['plain on the card'][2]}")
+    strict = "kernels, TF32 off"
+    legs = (("kernels", "plain on the card", TRAIN_KERNEL_TOL, "held"),
+            ("kernels", "cpu", TRAIN_TOL, "held"),
+            ("kernels", strict, TF32_GUARD_TOL, "held"),
+            ("kernels, TF32 allowed", strict, TF32_GUARD_TOL, "held"),
+            ("control: backward unguarded, TF32 allowed", strict,
+             TF32_GUARD_TOL, "control"))
+    parity = {}
+    for got, ref, tol, role in legs:
+        (lg, gg, _), (lr, gr, _) = runs[got], runs[ref]
+        worst, name, glob = _leaf_errs(gg, gr)
+        d_loss = abs(lg - lr) / max(1.0, abs(lr))
+        loss_tol = TRAIN_LOSS_TOL if ref == "cpu" else tol
+        parity[f"{got} / {ref}"] = worst
+        print(f"(w4) one step's gradients at batch {LB_TRAIN_BATCH}, float32 "
+              f"conditioners, {got} against {ref} [{card}]: loss {lg:.6f} "
+              f"vs {lr:.6f} (rel {d_loss:.2e}), gradient |Δ|/|g| "
+              f"{glob:.2e}, worst leaf {worst:.2e} ({name}); "
+              + (f"tol {loss_tol:g} / {tol:g}" if role == "held"
+                 else f"control, above {tol:g}"))
+        if role == "held":
+            check(d_loss <= loss_tol, f"(w4) loss, {got} against {ref}: "
+                                      f"{d_loss}")
+            check(worst <= tol, f"(w4) leaf {name}, {got} against {ref}: "
+                                f"{worst}")
+        else:
+            check(worst > tol, f"(w4) the TF32 guard's tolerance does not "
+                               f"see {got} ({worst:.2e})")
+    return {"history": history, "launches": (fwd, bwd), "wall": wall,
+            "steps_per_s": steps_per_s, "split": split, "parity": parity}
+
+
+def phase_lb_v1(torch, plain, rqs_cuda, card):
+    """(w5) long_bns_v1: its NLL card against CPU on LB_V1_PARITY events,
+    then tools/validate_long_bns.py at LB_V1_EVENTS x LB_V1_POST in chunks
+    of LB_V1_CHUNK beside its calibration.json's coverage and SBC, and its
+    rqs_tile<8> launches (18 a chunk)."""
+    from posteriflow_torch.models import long_bns as lb
+    from posteriflow_torch.tools import validate_long_bns
+    draws = lb.draw_long_bns(LB_V1_PARITY, lb.band_freqs(64.0, 1024.0).size,
+                             None, torch.Generator().manual_seed(31), "cpu")
+    nll = {}
+    for dev in (DEVICE, "cpu"):
+        model, _, _ = _lb_release(torch, LB_V1_RELEASE, dev)
+        with torch.no_grad():
+            tok, theta = lb.simulate_long_bns_from_draws(
+                lb.LongBNSDraws(*(None if t is None else t.to(dev)
+                                  for t in draws)))
+            nll[dev] = float(model(tok, theta))
+    d = _rel(nll[DEVICE], nll["cpu"])
+    print(f"(w5) long_bns_v1 NLL on {LB_V1_PARITY} events: card "
+          f"{nll[DEVICE]:.5f}, CPU {nll['cpu']:.5f} (rel {d:.2e}, tol "
+          f"{LB_SERVE_TOL:g}) [{card}]")
+    check(d <= LB_SERVE_TOL, f"(w5) v1 NLL card vs CPU differs by {d}")
+    cal = json.loads(open(f"{LB_V1_RELEASE}/calibration.json").read())
+    counts, restore = _count_plain(torch, plain)
+    rqs_cuda.KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            code, report, record = validate_long_bns.run(
+                ["--model", LB_V1_RELEASE, "--n-events", str(LB_V1_EVENTS),
+                 "--n-post", str(LB_V1_POST), "--chunk", str(LB_V1_CHUNK),
+                 "--device", DEVICE, "--out", tmp])
+            wall = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = rqs_cuda.KERNEL.launches
+    n_chunks = -(-LB_V1_EVENTS // LB_V1_CHUNK)
+    m = report["metrics"]
+    secs = ", ".join(f"{k} {v:.3f}" for k, v in record["seconds"].items())
+    print(f"(w5) validate_long_bns on long_bns_v1, {LB_V1_EVENTS} x "
+          f"{LB_V1_POST} in chunks of {LB_V1_CHUNK}: exit {code} in "
+          f"{wall:.2f} s ({secs} s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]; "
+          f"rqs_tile<8> launches {launches} (expected {18 * n_chunks}), "
+          f"plain spline {dict(counts)}")
+    print(f"(w5)   val NLL {m['val_nll']:.4f} (calibration's final val "
+          f"{cal['final_val_nll']:.4f}), shuffle ΔNLL "
+          f"{m['shuffle_delta_nll']:.4f}; coverage violations "
+          f"{m['cov50_violations']}/{m['cov90_violations']} (calibration "
+          f"{cal['cov50_violations']}/{cal['cov90_violations']} at "
+          f"{cal['n_events']} x {cal['n_post']}), SBC pass "
+          f"{m['sbc_pass_frac']:.3f} (calibration {cal['sbc_pass_frac']:.3f})"
+          f"; gates: " + ", ".join(
+              f"{c['gate']} {'PASS' if c['passed'] else 'FAIL'}"
+              for c in report["checks"]))
+    check(launches == 18 * n_chunks, f"(w5) rqs_tile<8> launched {launches}"
+                                     f" times, expected {18 * n_chunks}")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"(w5) the plain spline ran: {counts}")
+    check(all(math.isfinite(m[k]) for k in ("val_nll", "shuffle_delta_nll",
+                                            "dist_corr")),
+          "(w5) non-finite v1 statistics")
+    return {"launches": launches, "wall": wall, "code": code}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2991,6 +3631,15 @@ def main() -> int:
                               f"{tmp}/bank")
             val = phase_validate(torch, plain, rqs_cuda, train_cfg, card,
                                  f"{tmp}/bank")
+        t0 = time.perf_counter()
+        lbk = phase_lb_kernels(torch, plain, rqs_cuda, card,
+                               (LB_V1_CHUNK, LB_V1_CHUNK * LB_V1_POST))
+        lbs = phase_lb_serve(torch, plain, rqs_cuda, card)
+        lbv = phase_lb_validate(torch, plain, rqs_cuda, card)
+        lbt = phase_lb_train(torch, plain, rqs_cuda, card)
+        lb1 = phase_lb_v1(torch, plain, rqs_cuda, card)
+        lb_s = time.perf_counter() - t0
+        print(f"(w) long-BNS phases done in {lb_s:.1f} s [{card}]")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3078,6 +3727,71 @@ def main() -> int:
         "host_us_a_call": grad["host_us"],
         "library_ms": None,
     }]
+    t_inv = lbk["times"][(20000, LB_K, True)]
+    t_f50 = lbk["times"][(50, LB_K, False)]
+    t_f64 = lbk["times"][(64, LB_K, False)]
+    t_v1 = lbk["times"][(LB_V1_CHUNK * LB_V1_POST, LB_V1_K, True)]
+    t_v1f = lbk["times"][(LB_V1_CHUNK, LB_V1_K, False)]
+    kernels += [{
+        "name": f"rqs_tile<{LB_K}, inverse|forward, bias> (long_bns_v4's "
+                f"spline)",
+        "route": "cuda",
+        "source": "posteriflow_torch/csrc/rqs.cu",
+        "replaces": "posteriflow_tpu/ops/pallas_rqs.py:118",
+        "launches": lbv["launches"],
+        "launches_by_path": {
+            f"validate_long_bns {LB_EVENTS} x {LB_POST} (w3)":
+                lbv["launches"],
+            f"one {LB_SERVE_EVENTS}-event request (w2)": lbs["launches"],
+            f"train_long_bns {LB_TRAIN_STEPS} steps with evaluations and "
+            f"calibration (w4)": lbt["launches"][0]},
+        "max_abs_err": lbk["tile_err"][LB_K],
+        "ms": t_inv["ms"] if t_inv["ms"] is not None else t_inv["events_ms"],
+        "ms_from": ("profiler device time, inverse at 20000 rows"
+                    if t_inv["ms"] is not None else "CUDA events"),
+        "plain_ms": t_inv["plain_ms"],
+        "bound_ms": t_inv["bound_ms"], "bound_by": t_inv["bound_by"],
+        "rows_50_forward": t_f50, "rows_64_forward": t_f64,
+        "library_ms": None,
+    }, {
+        "name": f"rqs_grad<{LB_K}, bias> (long_bns_v4's spline backward, "
+                f"16-lane groups)",
+        "route": "cuda",
+        "source": "posteriflow_torch/csrc/rqs.cu",
+        "replaces": "posteriflow_tpu/models/flow.py:96",
+        "launches": lbt["launches"][1],
+        "launches_by_path": {f"train_long_bns {LB_TRAIN_STEPS} steps (w4)":
+                             lbt["launches"][1]},
+        "max_abs_err": lbk["grad"]["max_abs_err"],
+        "max_rel_err": lbk["grad"]["max_rel_err"],
+        "ms": (lbk["grad"]["ms"] if lbk["grad"]["ms"] is not None
+               else lbk["grad"]["events_ms"]),
+        "events_ms": lbk["grad"]["events_ms"],
+        "plain_ms": lbk["grad"]["plain_ms"],
+        "bound_ms": lbk["grad"]["bound_ms"],
+        "bound_by": lbk["grad"]["bound_by"],
+        "train_step_vs_plain": lbt["parity"]["kernels / plain on the card"],
+        "library_ms": None,
+    }, {
+        "name": f"rqs_tile<{LB_V1_K}, inverse|forward, bias> (long_bns_v1's "
+                f"spline)",
+        "route": "cuda",
+        "source": "posteriflow_torch/csrc/rqs.cu",
+        "replaces": "posteriflow_tpu/ops/pallas_rqs.py:118",
+        "launches": lb1["launches"],
+        "launches_by_path": {
+            f"validate_long_bns on long_bns_v1, {LB_V1_EVENTS} x "
+            f"{LB_V1_POST} (w5)": lb1["launches"]},
+        "max_abs_err": lbk["tile_err"][LB_V1_K],
+        "ms": t_v1["ms"] if t_v1["ms"] is not None else t_v1["events_ms"],
+        "ms_from": (f"profiler device time, inverse at "
+                    f"{LB_V1_CHUNK * LB_V1_POST} rows"
+                    if t_v1["ms"] is not None else "CUDA events"),
+        "plain_ms": t_v1["plain_ms"],
+        "bound_ms": t_v1["bound_ms"], "bound_by": t_v1["bound_by"],
+        f"rows_{LB_V1_CHUNK}_forward": t_v1f,
+        "library_ms": None,
+    }]
     print(f"(e) done in {time.perf_counter() - t_start:.1f} s [{card}]; "
           f"draws/s {bench['draws_per_s']:.0f} (noise batch, d), "
           f"{path['draws_per_s']:.0f} (simulated batch, h); simulate_batch "
@@ -3096,7 +3810,11 @@ def main() -> int:
           f"{bank['steps']['steps_per_s']:.3f} steps/s, host feed wait "
           f"{max(bank['feed']['waits_ms'][1:]):.3f} ms a step at most "
           f"after the first; validation at {VAL_EVENTS} x {VAL_POST} "
-          f"{val['wall_s']:.2f} s")
+          f"{val['wall_s']:.2f} s; long_bns_v4 validation at {LB_EVENTS} x "
+          f"{LB_POST} {lbv['wall']:.2f} s, training "
+          f"{lbt['steps_per_s']:.2f} steps/s at batch {LB_TRAIN_BATCH}; "
+          f"long_bns_v1 validation at {LB_V1_EVENTS} x {LB_V1_POST} "
+          f"{lb1['wall']:.2f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

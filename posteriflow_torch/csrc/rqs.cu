@@ -381,16 +381,22 @@ rqs_tile(const float* __restrict__ x, const float* __restrict__ raw,
 // spreads the 4,480 splines over every SM, keeps each lane's chain short
 // and takes the IEEE divisions (with their slow-path branches) only where
 // the forward's bits or autograd's clamp need them. At N = 131072 it moves
-// 357 MB, and instruction issue bounds it: the K lanes of a spline repeat
-// the left-to-right sums and the map, so a spline costs K/32 of a warp's
-// instructions where one thread a spline cost 1/32 of a longer chain
-// (times in PERF.md).
+// 357 MB, and instruction issue bounds it: the lanes of a spline repeat
+// the left-to-right sums and the map, so a spline costs G/32 of a warp's
+// instructions (G below) where one thread a spline cost 1/32 of a longer
+// chain (times in PERF.md).
 //
-// Design: K lanes a spline, 32/K splines a warp (K divides 32, so a group
-// never straddles warps), kGradThreads threads a block. Lane j holds raw[j]
-// (width), raw[K+j] (height) and, for j < K-1, raw[2K+j] (interior
-// derivative), each with its bias: three runs of K contiguous floats that a
-// warp loads and stores coalesced, with no shared memory.
+// Design: a group of G lanes a spline, G = K rounded up to a power of two
+// (shuffle widths must be powers of two), 32/G splines a warp (G divides
+// 32, so a group never straddles warps), kGradThreads threads a block.
+// Lane j < K holds raw[j] (width), raw[K+j] (height) and, for j < K-1,
+// raw[2K+j] (interior derivative), each with its bias: three runs of K
+// contiguous floats that a warp loads and stores coalesced, with no shared
+// memory. Where K is not a power of two (K = 12: G = 16) lanes K..G-1 pad
+// the group: they load nothing and store nothing, hold -inf as their width
+// and height (so they add -inf to the max and 0 to every sum, the
+// butterfly included) and stay alive for the shuffles. For K a power of
+// two G = K and the padding conditions are compile-time true.
 // - The forward's knots, bit for bit: the softmax's max by shuffle (exact in
 //   any order); each lane its own exp and IEEE division with the forward's
 //   expressions (softmax_exp, knots; built with -fmad=false); the sum of
@@ -425,41 +431,50 @@ rqs_tile(const float* __restrict__ x, const float* __restrict__ raw,
 constexpr int kGradThreads = 128;
 constexpr unsigned kWarp = 0xffffffffu;
 
-template <int K>
+// the lanes of a spline's group: K rounded up to a power of two
+__host__ __device__ constexpr int group_width(int k) {
+  int g = 1;
+  while (g < k) g <<= 1;
+  return g;
+}
+
+template <int G>
 __device__ __forceinline__ float group_max(float v) {
 #pragma unroll
-  for (int off = K / 2; off > 0; off >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(kWarp, v, off, K));
+  for (int off = G / 2; off > 0; off >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(kWarp, v, off, G));
   }
   return v;
 }
 
-template <int K>
+template <int G>
 __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int off = K / 2; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(kWarp, v, off, K);
+  for (int off = G / 2; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(kWarp, v, off, G);
   }
   return v;
 }
 
-// One axis of a spline over its K lanes, lane j holding v = raw[j] (+ bias):
-// sets *p to the lane's softmax entry e_j / sum and returns knot j + 1 (the
-// pinned end on lane K-1), each bit for bit as softmax_exp and knots form it.
-template <int K>
+// One axis of a spline over the K working lanes of its group of G, lane j
+// holding v = raw[j] (+ bias), a padding lane -inf: sets *p to the lane's
+// softmax entry e_j / sum (0 on a padding lane) and returns knot j + 1 (the
+// pinned end on lanes K-1 and up), each bit for bit as softmax_exp and
+// knots form it: the sum and the cumsum gather lanes 0..K-1 left to right.
+template <int K, int G>
 __device__ __forceinline__ float lane_knot(float v, int j, float min_bin,
                                            float scale, float bound,
                                            float* p) {
-  const float e = expf(v - group_max<K>(v));
+  const float e = expf(v - group_max<G>(v));
   float sum = 0.f;
 #pragma unroll
-  for (int k = 0; k < K; ++k) sum += __shfl_sync(kWarp, e, k, K);
+  for (int k = 0; k < K; ++k) sum += __shfl_sync(kWarp, e, k, G);
   *p = e / sum;
   const float size = min_bin + scale * *p;
   float cs = 0.f, mine = 0.f;
 #pragma unroll
   for (int k = 0; k < K - 1; ++k) {
-    cs += __shfl_sync(kWarp, size, k, K);
+    cs += __shfl_sync(kWarp, size, k, G);
     mine = k == j ? cs : mine;
   }
   return j < K - 1 ? mine * (2.f * bound) - bound : bound;
@@ -472,25 +487,32 @@ rqs_grad(const float* __restrict__ x, const float* __restrict__ raw,
          const float* __restrict__ g_logdet, float* __restrict__ g_x,
          float* __restrict__ g_raw, int n, int d, float bound) {
   constexpr int R = 3 * K - 1;
+  constexpr int G = group_width(K);
+  constexpr bool kPad = G != K;              // lanes K..G-1 pad the group
   const float min_w = (float)kMinBinWidth;
   const float scale_w = (float)(1.0 - kMinBinWidth * K);
   const float min_h = (float)kMinBinHeight;
   const float scale_h = (float)(1.0 - kMinBinHeight * K);
   const int splines = n * d;                 // < 2^31: pf_rqs_grad_launch
-  const int j = (int)threadIdx.x % K;
+  const int j = (int)threadIdx.x % G;
+  const bool lane = !kPad || j < K;          // a working lane
   const int first = (int)(threadIdx.x & 31u) - j;   // the group's lane 0
   const int spline =
-      (int)blockIdx.x * (kGradThreads / K) + (int)threadIdx.x / K;
+      (int)blockIdx.x * (kGradThreads / G) + (int)threadIdx.x / G;
   const bool live = spline < splines;
   const int sp = live ? spline : splines - 1;
 
   const float* r = raw + (long long)sp * R;
-  float w = r[j], h = r[K + j];
-  float u = j < K - 1 ? r[2 * K + j] : 0.f;
-  if (BIAS) {
-    w += bias[j];
-    h += bias[K + j];
-    if (j < K - 1) u += bias[2 * K + j];
+  float w = __int_as_float(0xff800000), h = w, u = 0.f;   // -inf
+  if (lane) {
+    w = r[j];
+    h = r[K + j];
+    if (j < K - 1) u = r[2 * K + j];
+    if (BIAS) {
+      w += bias[j];
+      h += bias[K + j];
+      if (j < K - 1) u += bias[2 * K + j];
+    }
   }
   const float v = x[sp], g_y = g_out[sp], g_l = g_logdet[sp / d];
   const bool inside = fabsf(v) <= bound;
@@ -498,8 +520,8 @@ rqs_grad(const float* __restrict__ x, const float* __restrict__ raw,
 
   // the forward's knots, bin and derivatives
   float p_w, p_h;
-  const float kx = lane_knot<K>(w, j, min_w, scale_w, bound, &p_w);
-  const float ky = lane_knot<K>(h, j, min_h, scale_h, bound, &p_h);
+  const float kx = lane_knot<K, G>(w, j, min_w, scale_w, bound, &p_w);
+  const float ky = lane_knot<K, G>(h, j, min_h, scale_h, bound, &p_h);
   const unsigned below = __ballot_sync(kWarp, j < K - 1 && vs >= kx);
   const int idx = __popc((below >> first) & ((1u << (K - 1)) - 1u));
   const float z = expf(u);
@@ -507,12 +529,12 @@ rqs_grad(const float* __restrict__ x, const float* __restrict__ raw,
   // every lane shuffles, then selects: a shuffle under a branch that
   // differs between the groups of a warp would not be reached by all
   const int lo = idx > 0 ? idx - 1 : 0;
-  const float kx_lo = __shfl_sync(kWarp, kx, lo, K);
-  const float ky_lo = __shfl_sync(kWarp, ky, lo, K);
-  const float dv_lo = __shfl_sync(kWarp, dv, lo, K);
-  const float x_hi = __shfl_sync(kWarp, kx, idx, K);
-  const float y_hi = __shfl_sync(kWarp, ky, idx, K);
-  const float dv_hi = __shfl_sync(kWarp, dv, idx, K);
+  const float kx_lo = __shfl_sync(kWarp, kx, lo, G);
+  const float ky_lo = __shfl_sync(kWarp, ky, lo, G);
+  const float dv_lo = __shfl_sync(kWarp, dv, lo, G);
+  const float x_hi = __shfl_sync(kWarp, kx, idx, G);
+  const float y_hi = __shfl_sync(kWarp, ky, idx, G);
+  const float dv_hi = __shfl_sync(kWarp, dv, idx, G);
   const float x_lo = idx > 0 ? kx_lo : -bound;
   const float y_lo = idx > 0 ? ky_lo : -bound;
   const float d_lo = idx > 0 ? dv_lo : 1.f;
@@ -573,15 +595,15 @@ rqs_grad(const float* __restrict__ x, const float* __restrict__ raw,
                      * ((j < idx ? c_lo_x : 0.f) + (j <= idx ? c_hi_x : 0.f));
   const float gp_h = scale_h * two_b
                      * ((j < idx ? c_lo_y : 0.f) + (j <= idx ? c_hi_y : 0.f));
-  const float dot_w = group_sum<K>(p_w * gp_w);
-  const float dot_h = group_sum<K>(p_h * gp_h);
+  const float dot_w = group_sum<G>(p_w * gp_w);
+  const float dot_h = group_sum<G>(p_h * gp_h);
   // the bin's two interior derivatives: softplus' = sigmoid
   const float sg = u > 20.f ? 1.f : __fdividef(z, z + 1.f);
   float g_u = 0.f;
   if (idx > 0 && j == idx - 1) g_u = g_dlo * sg;
   if (idx < K - 1 && j == idx) g_u = g_dhi * sg;
 
-  if (live) {
+  if (live && lane) {
     float* gr = g_raw + (long long)sp * R;
     gr[j] = inside ? p_w * (gp_w - dot_w) : 0.f;
     gr[K + j] = inside ? p_h * (gp_h - dot_h) : 0.f;
@@ -595,7 +617,7 @@ int launch_grad(const float* x, const float* raw, const float* bias,
                 const float* g_out, const float* g_logdet, float* g_x,
                 float* g_raw, int n, int d, float bound,
                 cudaStream_t stream) {
-  constexpr int S = kGradThreads / K;        // splines a block
+  constexpr int S = kGradThreads / group_width(K);   // splines a block
   const int grid = (int)(((long long)n * d + S - 1) / S);
   rqs_grad<K, BIAS><<<grid, kGradThreads, 0, stream>>>(
       x, raw, bias, g_out, g_logdet, g_x, g_raw, n, d, bound);
@@ -686,6 +708,7 @@ extern "C" int pf_rqs_launch(const void* x, const void* raw, const void* bias,
   switch (k) {
     case 4: return dispatch<4>(a, inverse != 0);
     case 8: return dispatch<8>(a, inverse != 0);
+    case 12: return dispatch<12>(a, inverse != 0);
     case 16: return dispatch<16>(a, inverse != 0);
     case 32: return dispatch<32>(a, inverse != 0);
     default: return (int)cudaErrorInvalidValue;
@@ -722,6 +745,8 @@ extern "C" int pf_rqs_grad_launch(const void* x, const void* raw,
                                     tail_bound, st);
     case 8: return dispatch_grad<8>(xf, rf, bf, go, gl, gx, gr, n, d,
                                     tail_bound, st);
+    case 12: return dispatch_grad<12>(xf, rf, bf, go, gl, gx, gr, n, d,
+                                      tail_bound, st);
     case 16: return dispatch_grad<16>(xf, rf, bf, go, gl, gx, gr, n, d,
                                       tail_bound, st);
     case 32: return dispatch_grad<32>(xf, rf, bf, go, gl, gx, gr, n, d,

@@ -48,7 +48,7 @@ BUILD_DIR = _PKG / "_build"
 # it does in the plain version (see csrc/rqs.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-fmad=false")
-SUPPORTED_BINS = (4, 8, 16, 32)      # template instances in csrc/rqs.cu
+SUPPORTED_BINS = (4, 8, 12, 16, 32)  # template instances in csrc/rqs.cu
 # csrc/rqs.cu: kThreads, kStages, kBarrierBytes, __launch_bounds__(256, 2)
 THREADS = 256
 STAGES = 2

@@ -1,6 +1,6 @@
 """TaylorF2: 3.5PN stationary-phase inspiral amplitude and phase.
 
-Port of posteriflow_tpu/physics/waveforms/taylorf2.py:36-108: complete
+Port of posteriflow_tpu/physics/waveforms/taylorf2.py:36-134: complete
 non-spinning 3.5PN phase, the leading aligned-spin terms (1.5PN β, 2PN σ,
 2.5PN γ) and the Newtonian amplitude in scaled strain units;
 h̃ = A e^{-iΨ}, coalescence at t = 0.
@@ -101,3 +101,21 @@ def taylorf2_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
               + p7 * v7)
     psi = (3.0 / (128.0 * eta * v5)) * series - 2.0 * phase_c - math.pi / 4.0
     return amp, psi
+
+
+def taylorf2_polarizations(freqs, mass_1, mass_2, chi_1, chi_2,
+                           luminosity_distance, theta_jn, phase_c,
+                           f_lower: float = 20.0):
+    """(h̃₊, h̃ₓ) [..., F] complex64, coalescence at t = 0, cut at the
+    Schwarzschild ISCO (posteriflow_tpu/physics/waveforms/taylorf2.py:122):
+    h̃₊ = A·(1 + cos²ι)/2·e^{-iΨ}, h̃ₓ = A·cos ι·i·e^{-iΨ}."""
+    amp, psi = taylorf2_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
+                                  luminosity_distance, phase_c, f_lower)
+    f_isco = isco_frequency(mass_1 + mass_2)
+    amp = torch.where(freqs <= f_isco, amp, 0.0)
+    ci = torch.cos(torch.as_tensor(theta_jn))
+    cos_p, sin_p = torch.cos(psi), torch.sin(psi)
+    w_p = amp * 0.5 * (1.0 + ci * ci)
+    w_c = amp * ci
+    return (torch.complex(w_p * cos_p, w_p * -sin_p),
+            torch.complex(w_c * sin_p, w_c * cos_p))

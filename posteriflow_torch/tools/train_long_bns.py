@@ -1,0 +1,348 @@
+"""Train the long-BNS NPE with the port and write its calibration.
+
+The port's twin of scripts/train_long_bns.py, on one device, with its
+flags and defaults: batches are simulated on the device every step
+(models/long_bns.py), the loss is the model's mean NLL, and the optimizer
+is JAX's (scripts/train_long_bns.py:175-180) built from train/trainer.py's
+pieces: clip_by_global_norm(10), then AdamW with weight decay 1e-5 under
+warmup_cosine_decay(0, lr, min(200, max(1, steps // 10)),
+max(steps, warmup + 1), end 0.02·lr). Every --eval-every steps (and after
+the first) it records train and validation NLL and the conditioning delta
+(v4: signal ΔNLL; v1: θ-shuffle ΔNLL) in history.json and saves the
+weights; at the end a coverage + SBC battery writes calibration.json with
+JAX's keys.
+
+Outputs in --outdir: state.pt (the model's state_dict; the msgpack
+encoder is ROADMAP §1 item 3),
+history.json, calibration.json (written up front with "pending": true)
+and, for v4, grid.npz: the trigger grid it trained on, the stored grid of
+the config where there is one (models/grids/), else the port's own build.
+--resume restores the weights from state.pt and, as JAX's does, starts a
+fresh optimizer, so the schedule restarts at count 0.
+
+Not ported: --tokens v3 (ROADMAP §1 item 4) and --mesh (item 5) raise;
+--prng takes only JAX's default (the port draws from torch.Generators,
+seeded by step: ROADMAP §1 item 3). --scan N runs the steps in epochs of N
+and records at each epoch's end, as JAX's scanned path does.
+
+    python -m posteriflow_torch.tools.train_long_bns --outdir model/lbns \\
+        --steps 50000 --batch 64
+    python -m posteriflow_torch.tools.train_long_bns --device cpu \\
+        --outdir /tmp/lbns --steps 2 --batch 2 --d-model 16 --n-layers 1 \\
+        --cal-events 4 --cal-post 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    """What trainer.Optimizer reads of a config, for JAX's long-BNS chain."""
+    lr: float
+    warmup_steps: int
+    total_steps: int
+    end_value: float
+    grad_clip: float = 10.0
+    grad_clip_mode: str = "global"
+    weight_decay: float = 1e-5
+
+
+def opt_config(lr: float, steps: int) -> OptConfig:
+    """scripts/train_long_bns.py:175-180's schedule for `steps` steps."""
+    warmup = min(200, max(1, steps // 10))
+    return OptConfig(lr=lr, warmup_steps=warmup,
+                     total_steps=max(steps, warmup + 1), end_value=0.02 * lr)
+
+
+def make_optimizer(model, cfg: OptConfig):
+    """trainer.Optimizer with the long-BNS schedule's 0.02·lr floor."""
+    from posteriflow_torch.train.trainer import Optimizer, warmup_cosine
+
+    class LongBNSOptimizer(Optimizer):
+        def lr(self) -> float:
+            return warmup_cosine(self.count, cfg.lr, cfg.warmup_steps,
+                                 cfg.total_steps, cfg.end_value)
+
+    return LongBNSOptimizer(model, cfg)
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--outdir", default="model/long_bns_v1")
+    ap.add_argument("--steps", type=int, default=4000)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--duration", type=float, default=64.0)
+    ap.add_argument("--tokens", default="v4", choices=["v1", "v3", "v4"])
+    ap.add_argument("--sigma-mc-rel", type=float, default=5e-4)
+    ap.add_argument("--sigma-t", type=float, default=5e-3)
+    ap.add_argument("--flow-bins", type=int, default=12)
+    ap.add_argument("--n-bands", type=int, default=64)
+    ap.add_argument("--per-band", type=int, default=32)
+    ap.add_argument("--alpha", type=float, default=2.0)
+    ap.add_argument("--f-hi", type=float, default=512.0)
+    ap.add_argument("--patch", type=int, default=4)
+    ap.add_argument("--n-heads", type=int, default=8)
+    ap.add_argument("--d-model", type=int, default=128)
+    ap.add_argument("--n-layers", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eval-every", type=int, default=500)
+    ap.add_argument("--cal-events", type=int, default=256)
+    ap.add_argument("--cal-post", type=int, default=256)
+    ap.add_argument("--cpu", action="store_true",
+                    help="the same as --device cpu")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", type=int, default=0)
+    ap.add_argument("--prng", default="threefry2x32",
+                    choices=["rbg", "threefry2x32"])
+    ap.add_argument("--scan", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
+    return ap
+
+
+def setup(args, device):
+    """The run's grid, model, optimizer and batch function ->
+    SimpleNamespace(model, opt, grid, batch_fn, enc_cfg, tok_cfg, v4, args,
+    device).
+    batch_fn(generator, amp_scale=1.0) simulates one batch; for v4 its
+    amp_scale 0 gives the noise-only tokens of the same draws."""
+    import torch
+
+    from posteriflow_torch.models import long_bns as lb
+    from posteriflow_torch.train.trainer import init_params
+
+    v4 = args.tokens == "v4"
+    grid = None
+    if v4:
+        tok_cfg = lb.trigger_grid_config(
+            duration=args.duration, f_hi=args.f_hi, alpha=args.alpha,
+            sigma_mc_rel=args.sigma_mc_rel, sigma_t=args.sigma_t)
+        try:
+            grid = lb.load_stored_grid(tok_cfg)
+        except FileNotFoundError:
+            grid = lb.build_trigger_token_grid(
+                **{k: v for k, v in tok_cfg.items() if k != "kind"})
+        enc_cfg = dict(d_model=args.d_model, n_layers=args.n_layers,
+                       n_heads=args.n_heads, patch=args.patch)
+        model = lb.LongBNSNPEv4(enc=enc_cfg, flow_bins=args.flow_bins,
+                                sigma_mc_rel=args.sigma_mc_rel,
+                                sigma_t=args.sigma_t)
+
+        def batch_fn(gen, amp_scale=1.0, draws=None):
+            if draws is None:
+                draws = lb.draw_long_bns(args.batch, grid["cut"],
+                                         grid["trunc"], gen, device)
+            return lb.simulate_long_bns_v4_from_draws(draws, grid, amp_scale)
+    else:
+        tok_cfg = {"kind": "v1", "n_bands": args.n_bands,
+                   "per_band": args.per_band}
+        enc_cfg = dict(d_model=args.d_model, n_layers=args.n_layers)
+        model = lb.LongBNSNPE(enc=enc_cfg)
+
+        def batch_fn(gen, amp_scale=1.0, draws=None):
+            return lb.simulate_long_bns_batch(
+                args.batch, duration=args.duration, n_bands=args.n_bands,
+                per_band=args.per_band, generator=gen, device=device)
+    init_params(model, torch.Generator().manual_seed(args.seed))
+    model.to(device)
+    opt = make_optimizer(model, opt_config(args.lr, args.steps))
+    return SimpleNamespace(model=model, opt=opt, grid=grid,
+                           batch_fn=batch_fn, enc_cfg=enc_cfg,
+                           tok_cfg=tok_cfg, v4=v4, args=args, device=device)
+
+
+def train_step(run, gen) -> float:
+    """One step: simulate, forward, backward (trainer.backward, TF32 off),
+    clip + AdamW. Returns the loss."""
+    from posteriflow_torch.train.trainer import backward
+    batch = run.batch_fn(gen)
+    loss = run.model(*batch)
+    run.opt.zero_grad()
+    backward(loss)
+    run.opt.step()
+    return float(loss.detach())
+
+
+def val_metrics(run, gen):
+    """(val NLL, conditioning delta) on one fresh batch: v4 the NLL gap of
+    the noise-only tokens of the same draws, v1 of θ rolled by one."""
+    import torch
+
+    from posteriflow_torch.models import long_bns as lb
+    with torch.no_grad():
+        if run.v4:
+            draws = lb.draw_long_bns(run.args.batch, run.grid["cut"],
+                                     run.grid["trunc"], gen, run.device)
+            tv, thv, trv = run.batch_fn(None, 1.0, draws)
+            vloss = float(run.model(tv, thv, trv))
+            tv0, _, _ = run.batch_fn(None, 0.0, draws)
+            return vloss, float(run.model(tv0, thv, trv)) - vloss
+        tv, thv = run.batch_fn(gen)
+        vloss = float(run.model(tv, thv))
+        return vloss, float(run.model(tv, torch.roll(thv, 1, dims=0))) - vloss
+
+
+def _generator(device, seed: int):
+    import torch
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _save_state(run, path: Path):
+    import torch
+    tmp = path.with_suffix(".tmp")
+    torch.save({"model": run.model.state_dict()}, tmp)
+    tmp.replace(path)
+
+
+def run_training(argv=None):
+    """main's body -> (history, calibration record, the run namespace)."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.tokens == "v3":
+        ap.error("--tokens v3: the v3 chirp front end is not ported yet "
+                 "(ROADMAP §1 item 4)")
+    if args.mesh:
+        ap.error("--mesh: sequence-parallel training is not ported yet "
+                 "(ROADMAP §1 item 5)")
+    if args.prng != "threefry2x32":
+        ap.error("--prng: the port draws from torch.Generators seeded by "
+                 "step; JAX's PRNG choice waits for ROADMAP §1 item 3")
+    if args.cpu:
+        args.device = "cpu"
+
+    import torch
+    from scipy.stats import kstest
+
+    from posteriflow_torch import PARAM_NAMES
+    from posteriflow_torch.models import long_bns as lb
+    from posteriflow_torch.train.trainer import step_seed
+    from posteriflow_torch.utils.logging import setup_logging
+
+    log = setup_logging()
+    device = torch.device(args.device)
+    outdir = Path(args.outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    run = setup(args, device)
+    if run.v4:
+        lb.save_grid(run.grid, outdir / "grid.npz")
+    n_par = sum(p.numel() for p in run.model.parameters())
+    log.info("LongBNSNPE%s: %s params, tokens L=%s", "v4" if run.v4 else "",
+             f"{n_par:,}", run.grid["L"] if run.v4 else
+             args.n_bands * args.per_band)
+
+    config = {"duration": args.duration, "steps": args.steps,
+              "batch": args.batch, "enc": run.enc_cfg,
+              "tokens": run.tok_cfg,
+              "flow": {"bins": args.flow_bins} if run.v4 else {},
+              "n_params": n_par, "mesh": args.mesh,
+              "n_bands": args.n_bands, "per_band": args.per_band,
+              **{k: run.enc_cfg[k] for k in ("d_model", "n_layers")}}
+    cal_path = outdir / "calibration.json"
+    if not (args.resume and cal_path.exists()):
+        cal_path.write_text(json.dumps({"pending": True, "config": config},
+                                       indent=2))
+
+    ckpt = outdir / "state.pt"
+    history = []
+    if args.resume and ckpt.exists():
+        saved = torch.load(ckpt, map_location=device, weights_only=True)
+        run.model.load_state_dict(saved["model"])
+        history = json.loads((outdir / "history.json").read_text())
+        log.info("resumed from %s (%d records)", ckpt, len(history))
+
+    delta_key = "signal_delta" if run.v4 else "shuffle_delta"
+
+    def eval_and_record(step_no, train_nll, t0):
+        vloss, delta = val_metrics(
+            run, _generator(device, (args.seed + 7) * 1_000_003 + step_no))
+        rec = {"step": step_no, "train_nll": float(train_nll),
+               "val_nll": vloss, delta_key: round(delta, 4),
+               "seconds": round(time.time() - t0, 1)}
+        history.append(rec)
+        log.info("step %5d | train %.3f | val %.3f | %s %.3f | %.0fs",
+                 step_no, rec["train_nll"], vloss, delta_key, delta,
+                 rec["seconds"])
+        _save_state(run, ckpt)
+        (outdir / "history.json").write_text(json.dumps(history, indent=2))
+
+    t0 = time.time()
+    done = history[-1]["step"] if history else 0
+    if args.scan:
+        for e in range(done // args.scan, args.steps // args.scan):
+            losses = [train_step(run, _generator(
+                device, step_seed(args.seed, e, i))) for i in
+                range(args.scan)]
+            eval_and_record((e + 1) * args.scan, losses[-1], t0)
+    else:
+        for i in range(done, args.steps):
+            loss = train_step(run, _generator(device,
+                                              step_seed(args.seed, 0, i)))
+            if (i + 1) % args.eval_every == 0 or i == 0:
+                eval_and_record(i + 1, loss, t0)
+
+    log.info("calibration battery: %d events x %d draws", args.cal_events,
+             args.cal_post)
+    in50s, in90s, ranks = [], [], []
+    n_chunks = max(1, args.cal_events // args.batch)
+    q = torch.tensor([0.25, 0.75, 0.05, 0.95], device=device)
+    with torch.no_grad():
+        for i in range(n_chunks):
+            gen = _generator(device, (args.seed + 1234) * 1_000_003 + i)
+            batch = run.batch_fn(gen)
+            theta = batch[1]
+            if run.v4:
+                draws = run.model.sample(batch[0], batch[2], args.cal_post,
+                                         gen)
+            else:
+                draws = run.model.sample(batch[0], args.cal_post, gen)
+            lo50, hi50, lo90, hi90 = torch.quantile(draws, q, dim=1)
+            in50s.append(((theta >= lo50) & (theta <= hi50)).float()
+                         .cpu().numpy())
+            in90s.append(((theta >= lo90) & (theta <= hi90)).float()
+                         .cpu().numpy())
+            ranks.append(torch.sum((draws < theta[:, None, :]).int(), dim=1)
+                         .cpu().numpy())
+    cov50 = np.concatenate(in50s).mean(0)
+    cov90 = np.concatenate(in90s).mean(0)
+    rk = np.concatenate(ranks)
+    sbc_p = [float(kstest((rk[:, j] + 0.5) / (args.cal_post + 1),
+                          "uniform").pvalue) for j in range(11)]
+    cal = {
+        "n_events": int(n_chunks * args.batch),
+        "n_post": args.cal_post,
+        "cov50": dict(zip(PARAM_NAMES, np.round(cov50, 3).tolist())),
+        "cov90": dict(zip(PARAM_NAMES, np.round(cov90, 3).tolist())),
+        "cov50_violations": int(np.sum(np.abs(cov50 - 0.5) > 0.07)),
+        "cov90_violations": int(np.sum(np.abs(cov90 - 0.9) > 0.05)),
+        "sbc_ks_p": dict(zip(PARAM_NAMES, sbc_p)),
+        "sbc_pass_frac": float(np.mean(np.asarray(sbc_p) > 1e-3)),
+        "final_val_nll": history[-1]["val_nll"] if history else None,
+        "config": config,
+    }
+    cal_path.write_text(json.dumps(cal, indent=2))
+    log.info("cov50 violations: %d; cov90 violations: %d; SBC pass %.2f",
+             cal["cov50_violations"], cal["cov90_violations"],
+             cal["sbc_pass_frac"])
+    print(json.dumps({k: cal[k] for k in ("cov50_violations",
+                                          "cov90_violations",
+                                          "sbc_pass_frac",
+                                          "final_val_nll")}))
+    return history, cal, run
+
+
+def main(argv=None):
+    return run_training(argv)[:2]
+
+
+if __name__ == "__main__":
+    main()

@@ -31,6 +31,10 @@ from posteriflow_torch.physics.simulator import sim_config_from_dict
 from posteriflow_torch.utils.msgpack_lite import unpackb
 
 _MHA_PROJ = ("query", "key", "value")
+# the DenseGeneral projections of long-BNS attention
+# (posteriflow_tpu/models/long_bns.py:223-232)
+_LB_PROJ = ("q", "k", "v")
+_HEAD_OUT = ("out", "o")
 
 
 def cfg_from_dict(d: dict) -> NPEConfig:
@@ -60,9 +64,11 @@ def flax_to_state_dict(params: dict) -> Dict[str, torch.Tensor]:
 
     Dense kernels [in, out] are transposed to [out, in]; Conv kernels go
     from [k, in, out] to [out, in, k]; the DenseGeneral kernels of
-    attention are reshaped: q/k/v [in, heads, hd] -> [heads·hd, in], out
-    [heads, hd, out] -> [out, heads·hd], and their [heads, hd] biases are
-    flattened. LayerNorm `scale` and Embed `embedding` become `weight`."""
+    attention are reshaped: query/key/value (long-BNS: q/k/v) [in, heads,
+    hd] -> [heads·hd, in], out (long-BNS: o) [heads, hd, out] -> [out,
+    heads·hd], and their [heads, hd] biases are flattened. LayerNorm
+    `scale` (auto-named LayerNorm_i included) and Embed `embedding` become
+    `weight`."""
     if set(params) == {"params"}:
         params = params["params"]
     sd = {}
@@ -72,9 +78,9 @@ def flax_to_state_dict(params: dict) -> Dict[str, torch.Tensor]:
         if leaf == "kernel":
             if a.ndim == 2:
                 a = a.T
-            elif parent in _MHA_PROJ:
+            elif parent in _MHA_PROJ + _LB_PROJ:
                 a = a.reshape(a.shape[0], -1).T
-            elif parent == "out":
+            elif parent in _HEAD_OUT:
                 a = a.reshape(-1, a.shape[-1]).T
             elif parent.startswith("Conv"):
                 a = a.transpose(2, 1, 0)
@@ -82,7 +88,7 @@ def flax_to_state_dict(params: dict) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"no rule for kernel {'/'.join(path)} "
                                  f"{a.shape}")
             leaf = "weight"
-        elif leaf == "bias" and parent in _MHA_PROJ:
+        elif leaf == "bias" and parent in _MHA_PROJ + _LB_PROJ:
             a = a.reshape(-1)
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
@@ -99,6 +105,36 @@ def load_release(release_dir) -> Tuple[Dict[str, torch.Tensor], NPEConfig,
     cfg = cfg_from_dict(meta["config"])
     tree = unpackb((release_dir / "params.msgpack").read_bytes())
     return flax_to_state_dict(tree), cfg, meta
+
+
+def load_long_bns(model_dir, device="cuda"):
+    """A long-BNS run or release directory -> (model on `device`, the
+    `config` of its calibration.json, its trigger grid or None for v1).
+
+    The config is read exactly as scripts/validate_long_bns.py:102-118
+    reads it (long_bns_v1 has no meta.json). The weights are
+    params.msgpack (a JAX release) or state.pt (a port run, which also
+    holds the grid it trained on as grid.npz). The grid is the directory's
+    own grid.npz where there is one, else the stored grid of the tokens
+    config; a v4 config without either raises."""
+    from posteriflow_torch.models import long_bns as lb  # imports us
+    model_dir = Path(model_dir)
+    cal_cfg = json.loads((model_dir / "calibration.json")
+                         .read_text())["config"]
+    model = lb.build_model(cal_cfg)
+    if (model_dir / "state.pt").is_file():
+        sd = torch.load(model_dir / "state.pt", map_location="cpu",
+                        weights_only=True)["model"]
+    else:
+        sd = flax_to_state_dict(unpackb(
+            (model_dir / "params.msgpack").read_bytes()))
+    model.load_state_dict(sd, strict=True)
+    grid = None
+    if lb.model_config(cal_cfg)["v4"]:
+        own = model_dir / "grid.npz"
+        grid = (lb.load_grid(own) if own.is_file()
+                else lb.load_stored_grid(cal_cfg["tokens"]))
+    return model.to(device), cal_cfg, grid
 
 
 def flax_view(model: nn.Module, name: str, t: torch.Tensor) -> torch.Tensor:

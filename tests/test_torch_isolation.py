@@ -9,7 +9,9 @@ on raw strain, simulates a batch with the flagship's SimConfig, serves one
 request on an injection, importance-corrects it through one tempered stage
 (the SMC sweep included) and takes one train step of the flagship's
 TrainConfig at batch 2, and another on a batch of the flagship's SimConfig
-simulated with a synthetic noise bank. chip_smoke.py without a GPU exits
+simulated with a synthetic noise bank; it serves long_bns_v4 on its stored
+trigger grid and long_bns_v1, and trains a tiny long-BNS model for a step
+with tools/train_long_bns.py. chip_smoke.py without a GPU exits
 non-zero, fast, with no result line. A scan of the sources checks what
 they import: h5py, gwpy, gwosc, matplotlib, bilby and pandas only inside
 the functions that need them (the plots, to_bilby), the rest nowhere.
@@ -111,6 +113,26 @@ bank = make_synthetic_bank(torch.Generator().manual_seed(1), n_segments=2,
 real = simulate_batch(2, sim, device="cpu", bank=bank,
                       generator=torch.Generator().manual_seed(3))
 step_real = train_step(state, real)
+# long-BNS: v4 served on its stored grid, v1, one tiny training run
+import tempfile
+from posteriflow_torch.models import long_bns as lb
+from posteriflow_torch.tools import train_long_bns
+from posteriflow_torch.train.checkpoints import load_long_bns
+lbm, _, lbgrid = load_long_bns("model_release/long_bns_v4", device="cpu")
+g = torch.Generator().manual_seed(4)
+tok, th, tr = lb.simulate_long_bns_batch_v4(2, lbgrid, generator=g,
+                                            device="cpu")
+v1m, _, _ = load_long_bns("model_release/long_bns_v1", device="cpu")
+tok1, th1 = lb.simulate_long_bns_batch(1, generator=g, device="cpu")
+with torch.no_grad():
+    lb_nll = float(lbm(tok, th, tr))
+    lb_draws = lbm.sample(tok, tr, 16, g)
+    v1_nll = float(v1m(tok1, th1))
+with tempfile.TemporaryDirectory() as tmp:
+    lb_hist, _, _ = train_long_bns.run_training(
+        ["--device", "cpu", "--outdir", tmp, "--steps", "1", "--batch", "2",
+         "--d-model", "16", "--n-layers", "1", "--n-heads", "2",
+         "--cal-events", "2", "--cal-post", "4"])
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                   "finite": bool(np.isfinite(res.samples).all()
@@ -132,6 +154,10 @@ print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                   "importance": [list(isr.samples.shape), isr.n_stages,
                                  len(isr.mcmc_acceptance),
                                  abs(float(isr.weights.sum()) - 1.0) < 1e-6],
+                  "long_bns": [lbgrid["config"]["kind"], lbgrid["n_tok"],
+                               bool(np.isfinite(lb_nll)),
+                               list(lb_draws.shape),
+                               bool(np.isfinite(v1_nll)), len(lb_hist)],
                   "loaded": loaded}))
 """
 
@@ -172,7 +198,8 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
         "evaluation", "evaluation.validation", "evaluation.noise_analysis",
         "inference.plots", "tools.validate_checkpoint",
         "tools.npe_diagnostics", "tools.twin_grid",
-        "tools.importance_validation")}
+        "tools.importance_validation", "models.long_bns",
+        "tools.validate_long_bns", "tools.train_long_bns")}
     assert expected <= set(out["modules"])
     assert out["shape"] == [64, 15] and out["finite"]
     assert out["verdict"] in ("HIGH", "MEDIUM", "LOW") and out["gate"]
@@ -183,6 +210,7 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
     assert out["importance"] == [[32, 15], 2, 1, True]
     assert out["ranking"] == [[0, 1], True]
     assert out["decompose"] == [1, True]
+    assert out["long_bns"] == ["trigger", 168, True, [2, 16, 11], True, 1]
     assert out["loaded"] == []
 
 

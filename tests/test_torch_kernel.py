@@ -92,7 +92,7 @@ def test_tile_plan(d, k, n):
 
 def test_tile_plan_refuses_what_cannot_fit():
     with pytest.raises(ValueError):
-        rqs_cuda.tile_plan(100, 7, 12, 132)          # no such instance
+        rqs_cuda.tile_plan(100, 7, 10, 132)          # no such instance
     with pytest.raises(ValueError):
         rqs_cuda.tile_plan(100, 400, 32, 132)        # 4 rows > 227 KB
     assert rqs_cuda.tile_plan(100, 100, 16, 132).rows_per_tile == 4
@@ -229,7 +229,7 @@ def test_kernel_refuses_bad_input_on_card(cuda_device):
     with pytest.raises(ValueError):
         rqs_cuda.KERNEL.launch(x, raw2[:, 1:], 16, 5.0, False)
     with pytest.raises(ValueError):
-        rqs_cuda.KERNEL.launch(x, raw.reshape(x.shape[0], -1), 12, 5.0,
+        rqs_cuda.KERNEL.launch(x, raw.reshape(x.shape[0], -1), 10, 5.0,
                                False)
     with pytest.raises(ValueError):          # bias of the wrong length
         rqs_cuda.KERNEL.launch(x, raw2, 16, 5.0, False,

@@ -52,7 +52,7 @@ def _assert_close_scaled(got, want, atol, gain):
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
-@pytest.mark.parametrize("k", [8, 16])
+@pytest.mark.parametrize("k", [8, 12, 16])
 def test_plain_matches_jax_rqs(k, inverse):
     """Same formula in float32: atol 1e-5 on out, scaled by each element's
     error gain, and on the D-summed logdet, scaled by the row's summed
@@ -67,7 +67,7 @@ def test_plain_matches_jax_rqs(k, inverse):
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
-@pytest.mark.parametrize("k", [8, 16])
+@pytest.mark.parametrize("k", [8, 12, 16])
 def test_plain_matches_pallas_interpret(k, inverse):
     """The Pallas body takes the bin width as pick(w)·2B instead of
     x_hi - x_lo, so it agrees with rqs.py only to the tolerance of

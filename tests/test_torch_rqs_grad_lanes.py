@@ -1,5 +1,6 @@
-"""The spline's CUDA backward kernel (csrc/rqs.cu rqs_grad, K lanes a
-spline) as its lanes run it, emulated in float32 on the CPU, against the
+"""The spline's CUDA backward kernel (csrc/rqs.cu rqs_grad, a group of G
+lanes a spline: K rounded up to a power of two, K = 12 in 16) as its lanes
+run it, emulated in float32 on the CPU, against the
 plain VJP (ops/rqs.py rqs_forward_vjp); and the backward entry of
 RqsForwardFn, which skips the checks its forward made on x, raw and bias
 but still checks the upstream gradients.
@@ -10,7 +11,7 @@ lanes, the bin as the count of interior knots <= x (the ballot), the
 bin's ends and derivatives from lanes idx-1 and idx, the map's reverse in
 the kernel's log-derivative form, the per-lane gradient on each softmax
 entry, the softmax Jacobian's dot product as the kernel's butterfly over
-the group, and the two derivative lanes. It is
+the group (padding lanes add 0), and the two derivative lanes. It is
 held to the plain VJP at the card tests' tolerance: 1e-5 of the
 reference's largest entry plus 1e-6.
 
@@ -56,14 +57,25 @@ def _lane_knots(v, k, min_bin, bound):
     return p, knot, scale
 
 
+def group_width(k: int) -> int:
+    """The lanes of a spline's group: K rounded up to a power of two."""
+    g = 1
+    while g < k:
+        g *= 2
+    return g
+
+
 def _butterfly(v, k):
-    """The group sum as group_sum takes it: xor shuffles K/2, ..., 1."""
-    lanes = torch.arange(k)
-    off = k // 2
+    """The group sum as group_sum takes it over the G lanes of the group,
+    the padding lanes K..G-1 holding 0: xor shuffles G/2, ..., 1."""
+    g = group_width(k)
+    v = torch.cat([v, v.new_zeros(*v.shape[:-1], g - k)], dim=-1)
+    lanes = torch.arange(g)
+    off = g // 2
     while off:
         v = v + v[..., lanes ^ off]
         off //= 2
-    return v
+    return v[..., :k]
 
 
 def lane_grad(x, raw, bias, g_out, g_logdet, k, bound=TAIL):
