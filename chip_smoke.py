@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """On-card check of posteriflow_torch: serve, train, importance-correct and
-decompose overlapping signals with the 15-D flagship release, and serve,
-validate and train the long-BNS models, on one NVIDIA GPU through the
+decompose overlapping signals with the 15-D flagship release, serve,
+validate and train the long-BNS models, train from a YAML config, export
+a release the JAX package reads and anchor it against a nested sampler,
+on one NVIDIA GPU through the
 hand-written CUDA RQS kernels (csrc/rqs.cu: rqs_tile, a
 TMA bulk-copy ring of row tiles, one thread per spline, the conditioner's
 derivative bias added in the kernel; rqs_grad, its backward, K lanes a
@@ -21,7 +23,8 @@ Phases (any failure exits non-zero and prints no result line):
       flagship sampling shape (N = 131072 rows, D = 7, K = 16), at ragged
       N (641, 5000: a part tile), at importance sampling's 4096 rows and
       at the decompositions' 2048 and 8192 rows (phases r, s), at
-      validation's 256 and 102,400 rows (phase v), both
+      validation's 256 and 102,400 rows (phase v), at the anchor
+      request's 3000 rows (phase x), both
       directions, with and without the bias, with tails beyond ±5: out
       and logdet max |Δ| = 0.
   (c) serve 4 requests through `infer` (raw 32 s coloured Gaussian noise per
@@ -174,6 +177,40 @@ Phases (any failure exits non-zero and prints no result line):
       (w5) long_bns_v1: its NLL card against CPU on 8 events, its
       validation at 250 x 256 in chunks of 50 beside its
       calibration.json, 90 rqs_tile<8> launches.
+  (x) the release path and the anchors, on the flagship. (x1) all 12
+      configs/*.yaml through the port's YAML reader into TrainConfigs;
+      configs/npe_r6.yaml's equals the release's meta.json but for lr and
+      total_steps. (x2) tools/train_npe.py from that YAML (written back by
+      save_config with its warmup cut to 2: train_npe sets total_steps to
+      epochs x steps, which must exceed the warmup) --init-from the release
+      --noise-bank (u)'s bank, 1 epoch x 5 steps, --profile-dir: 10 + 10
+      spline launches a step, no plain spline, a trace naming rqs_tile and
+      rqs_grad; fit(val_batch_fn=, on_epoch_end=): the hook once an epoch
+      after history.json, val_nll equal to batch_nll on the function's
+      batch. (x3) tools/export_release.py on that run; the export loaded by
+      CheckpointManager.load_release against the checkpoint, NLL and draws
+      with fixed z bit-equal; npe_r7_best and priority_v7 loaded on the
+      card and exported again byte-equal to the committed files (sha256
+      printed); LeanNPE.sample / .nll bit-equal to encode +
+      *_from_context. (x4) tools/make_anchors.py --only low_mc_razor at the
+      report's nlive 400, maxiter 12000, 3000 draws: the nested run ends by
+      dlogz, logZ_IS - logZ_nested in [-3, +12], summary_is mean JS <= 0.75,
+      rqs_tile launches exactly 10 for the request + 20 + 100·(stages - 1)
+      for importance sampling and none in the nested run; summary_is mean
+      width ratio in [0.4, 2.5], or, when the tool's importance correction
+      ends degenerate (its heaviest particle >= 0.9 of the weight), the
+      ending the JAX package's importance_correct gives on the same draws
+      (4 stages, a final hop from below β 0.1; tests/anchor_is_witness.py);
+      a 24-row likelihood call timed with its kernel count; rqs_tile
+      inverse at 3000 rows beside its bound, after (x2)'s trace. (x5)
+      tools/evidence_validation.py Parts A and C: matched-proposal IS within
+      0.02 nats of the analytic truth, prior-SMC at n_mcmc 30 within 3 of
+      its σ, the nested run at nlive 800 within 0.2 nats. (x6)
+      tools/priority_fusion_bound.py at its defaults and at 200 batches:
+      each bin of the three channels of the 200-batch run within 3
+      binomial σ of its difference from reports/priority_fusion_bound.json
+      (or ±0.07, the wider; the report's σ dominates), the defaults run
+      printed against ±0.07. Every output goes to a temporary directory.
   (e) the kernel table and the device as JSON lines; the last line is
       {"ok": true, "device": {...}}.
 Every time printed names the card and its power limit.
@@ -458,7 +495,7 @@ def phase_kernel_check(torch, plain, rqs_cuda, card):
     flagship = None
     for n in (N_ROWS, *RAGGED_ROWS, IS_ROWS, DECOMPOSE_ROWS,
               VAL_CHUNK, VAL_CHUNK * VAL_POST,
-              POD_EVENTS * POD_SAMPLES):
+              POD_EVENTS * POD_SAMPLES, ANCHOR_ROWS):
         x, raw, bias = spline_inputs(torch, n, seed=n)
         if n == N_ROWS:
             flagship = (x, raw, bias)
@@ -1178,28 +1215,33 @@ def forward_timing(torch, plain, rqs_cuda, x, raw, bias, inverse=False,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def kernel_device_ms(torch, fn, name: str, reps: int = 20):
+def kernel_device_ms(torch, fn, name: str, reps: int = 20, tries: int = 3):
     """Device time of one launch of the kernel `name` that fn() launches
     ("": any kernel; torch.profiler over `reps` calls; None without
     CUPTI). A small launch is shorter than the host's time to issue it,
-    which CUDA events over back-to-back launches measure instead."""
+    which CUDA events over back-to-back launches measure instead. On the
+    card a session now and then reads no kernel at all (once at phase l,
+    before any trace, once after phase x2's): such a session runs again,
+    up to `tries` times, and then this raises."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and name in e.key]
-    except RuntimeError:
-        return None
-    count = sum(e.count for e in evs)
-    if count == 0:
-        return None
-    return sum(e.self_device_time_total for e in evs) / count / 1e3
+    for _ in range(tries):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            evs = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and name in e.key]
+        except RuntimeError:
+            return None
+        count = sum(e.count for e in evs)
+        if count:
+            return sum(e.self_device_time_total for e in evs) / count / 1e3
+    raise RuntimeError(f"the profiler read no {name or 'kernel'} launch in "
+                       f"{tries} sessions")
 
 
 def grad_inputs(torch, plain, n: int, k: int, seed: int, d: int = D_TR):
@@ -3544,6 +3586,496 @@ def phase_lb_v1(torch, plain, rqs_cuda, card):
     return {"launches": launches, "wall": wall, "code": code}
 
 
+# (x) the release path and the anchors. X_CONFIG is the flagship's YAML
+# (configs/npe_r6.yaml); tools/train_npe.py sets total_steps to epochs x
+# steps, which must exceed the warmup (optax and the port both raise
+# otherwise), so (x2) trains from that YAML with its warmup cut to
+# X_WARMUP, written by save_config and read back by the port's reader.
+# (x4) runs one anchor at analysis/anchors.json's settings; its holds come
+# from the JAX report's five anchors (gaps -0.48 to +8.68 nats, mean JS
+# 0.42-0.56, width ratios 0.64-1.41) widened for one fresh noise draw.
+# (x5) holds the synthetic evidences to their analytic truths. (x6) runs
+# the fusion bound at its defaults (10 batches, the report's) and at
+# FUSION_BATCHES, and holds each bin of the long run to
+# reports/priority_fusion_bound.json within FUSION_SIGMAS binomial σ of the
+# difference of the two estimates (or FUSION_BAND, the wider): the
+# report's own bins hold 80-274 pairs (σ 0.05 at the close bins), so the
+# long run's share of σ is small and ±FUSION_BAND alone would be a 1.4σ
+# test of the report's noise. The defaults run is printed against
+# ±FUSION_BAND.
+X_CONFIG, X_WARMUP, X_STEPS = "configs/npe_r6.yaml", 2, 5
+X_HOOK_EPOCHS = 2
+X_BATCH_EVENTS, X_DRAWS = 8, 64
+PRIORITY_RELEASE = PRIORITY_RELEASES[0]
+ANCHOR, ANCHOR_NLIVE, ANCHOR_MAXITER, ANCHOR_ROWS = \
+    "low_mc_razor", 400, 12000, 3000
+ANCHOR_GAP, ANCHOR_JS_MAX, ANCHOR_WIDTH = (-3.0, 12.0), 0.75, (0.4, 2.5)
+# The tool's importance correction of this anchor's draws ends degenerate
+# on the card: 4 stages, Metropolis acceptance ~2%, and a relaxed final hop
+# from β 0.069 to 1 that hands ~all the weight to the one entry particle
+# whose log(L·π/g0) stands ~7 nats above the rest (473 copies of it pass
+# the hop's 10% ESS bar). The JAX package's own importance_correct on the
+# same entry cloud does the same (tests/anchor_is_witness.py on the CPU:
+# ANCHOR_WITNESS's stages, heaviest particle 0.990 of the weight). So the
+# width ratio is held on the tool's run when its heaviest particle holds
+# less than ANCHOR_DEGENERATE of the weight; when it holds more (every
+# 5-95% width is then 0), the run is held to the witnessed ending instead:
+# the same number of stages and a final hop from below β 0.1.
+ANCHOR_DEGENERATE, ANCHOR_WITNESS = 0.9, {"stages": 4, "heaviest": 0.990}
+LIKE_ROWS, LIKE_REPS = 24, 20
+EV_IS_TOL, EV_SMC_SIGMAS, EV_NESTED_TOL = 0.02, 3.0, 0.2
+EV_REPORT = "analysis/evidence_validation.json"
+FUSION_REPORT = "reports/priority_fusion_bound.json"
+FUSION_BAND, FUSION_SIGMAS, FUSION_BATCHES = 0.07, 3.0, 200
+# the report's pairs a bin: 80 close (its n_pairs_close); 155 and 274 are
+# the denominators of its fractions (142/155 and 271/274 for the params
+# oracle)
+FUSION_REF_PAIRS = {"[0.0,0.1)": 80, "[0.1,0.3)": 155, "[0.3,1.0)": 274}
+
+
+def phase_configs(card):
+    """(x1) every configs/*.yaml through the port's reader; npe_r6.yaml's
+    TrainConfig against the flagship's meta.json."""
+    import glob
+
+    from posteriflow_torch.utils.config import load_config, parse_yaml
+    paths = sorted(glob.glob("configs/*.yaml"))
+    t0 = time.perf_counter()
+    for p in paths:
+        with open(p) as f:
+            parse_yaml(f.read(), p)
+        load_config(p)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    a, b = load_config(X_CONFIG), load_config(RELEASE)
+    differ = sorted(f.name for f in dataclasses.fields(a)
+                    if getattr(a, f.name) != getattr(b, f.name))
+    print(f"(x1) {len(paths)} configs/*.yaml read and built into "
+          f"TrainConfigs by the port's reader in {read_ms:.1f} ms [{card}]; "
+          f"{X_CONFIG} against {RELEASE}/meta.json: differing fields "
+          f"{differ} (lr {a.lr} / {b.lr}, total_steps {a.total_steps} / "
+          f"{b.total_steps})")
+    check(len(paths) == 12, f"{len(paths)} configs")
+    check(differ == ["lr", "total_steps"], f"fields differ: {differ}")
+    return a
+
+
+def phase_train_yaml(torch, plain, rqs_cuda, yaml_cfg, card, bank_dir, tmp):
+    """(x2) tools/train_npe.py from the YAML with --init-from, the bank and
+    --profile-dir; then fit's hooks on the card."""
+    from posteriflow_torch.tools import train_npe
+    from posteriflow_torch.train import trainer
+    from posteriflow_torch.train.loop import fit
+    from posteriflow_torch.utils.config import load_config, save_config
+    cfg_path = f"{tmp}/x_config.yaml"
+    save_config(dataclasses.replace(yaml_cfg, warmup_steps=X_WARMUP),
+                cfg_path)
+    check(load_config(cfg_path) == dataclasses.replace(
+        yaml_cfg, warmup_steps=X_WARMUP), "save_config -> load_config")
+    run, trace_dir = f"{tmp}/x_run", f"{tmp}/x_trace"
+    per_step = []
+    orig = trainer.train_step
+
+    def counted(state, batch):
+        f0, g0 = rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches
+        out = orig(state, batch)
+        per_step.append((rqs_cuda.KERNEL.launches - f0,
+                         rqs_cuda.GRAD_KERNEL.launches - g0))
+        return out
+    counts, restore = _count_plain(torch, plain)
+    trainer.train_step = counted
+    rqs_cuda.KERNEL.launches = rqs_cuda.GRAD_KERNEL.launches = 0
+    try:
+        t0 = time.perf_counter()
+        hist = train_npe.main([
+            "--config", cfg_path, "--outdir", run, "--init-from", RELEASE,
+            "--noise-bank", bank_dir, "--epochs", "1", "--steps-per-epoch",
+            str(X_STEPS), "--profile-dir", trace_dir, "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer.train_step = orig
+        restore()
+    launches = (rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches)
+    trace = f"{trace_dir}/trace.json"
+    size = os.path.getsize(trace) if os.path.exists(trace) else 0
+    names = {}
+    if size:
+        with open(trace) as f:
+            text = f.read()
+        names = {k: text.count(k) for k in ("rqs_tile", "rqs_grad")}
+    rec = hist[-1]
+    print(f"(x2) tools/train_npe.py --config {X_CONFIG} (warmup "
+          f"{X_WARMUP}) --init-from {RELEASE} --noise-bank (u's bank) "
+          f"--epochs 1 --steps-per-epoch {X_STEPS} --profile-dir [{card}]: "
+          f"{wall:.1f} s with the trace on; train_nll {rec['train_nll']:.4f}"
+          f", val_nll {rec['val_nll']:.4f}, real_val_nll "
+          f"{rec['real_val_nll']:.4f}, lr_step {rec['lr_step']}; spline "
+          f"launches a step (forward, backward) {per_step}, the run's "
+          f"{launches}, plain spline calls {counts}; trace {size} B naming "
+          f"rqs_tile {names.get('rqs_tile', 0)} and rqs_grad "
+          f"{names.get('rqs_grad', 0)} times")
+    check(per_step == [(10, 10)] * X_STEPS, f"launches a step {per_step}")
+    check(counts == {"forward": 0, "inverse": 0}, f"plain spline {counts}")
+    check(rec["lr_step"] == X_STEPS and all(math.isfinite(rec[k]) for k in (
+        "train_nll", "val_nll", "real_val_nll")), f"record {rec}")
+    check(names.get("rqs_tile", 0) > 0 and names.get("rqs_grad", 0) > 0,
+          f"trace {trace} ({size} B) names {names}")
+
+    from posteriflow_torch.physics.simulator import simulate_batch
+    from posteriflow_torch.train.trainer import batch_nll
+    hook_cfg = dataclasses.replace(yaml_cfg, warmup_steps=1,
+                                   total_steps=X_HOOK_EPOCHS + 1)
+    seen, recs = {}, []
+
+    def val_batch_fn(gen):
+        seen["seed"] = gen.initial_seed()
+        seen["batch"] = simulate_batch(FIT_VAL_EVENTS, dataclasses.replace(
+            hook_cfg.sim, real_noise_prob=0.0), device=DEVICE, generator=gen)
+        return seen["batch"]
+
+    def on_epoch_end(r):
+        with open(f"{tmp}/x_hook/history.json") as f:
+            written = json.load(f)
+        recs.append((r, written[-1]["epoch"]))
+
+    state, history = fit(hook_cfg, f"{tmp}/x_hook", epochs=X_HOOK_EPOCHS,
+                         steps_per_epoch=1, n_val_events=FIT_VAL_EVENTS,
+                         init_from=RELEASE, device=DEVICE,
+                         val_batch_fn=val_batch_fn, on_epoch_end=on_epoch_end)
+    with torch.no_grad():
+        apart = float(batch_nll(state.model, seen["batch"]))
+    print(f"(x2) fit(val_batch_fn=, on_epoch_end=), {X_HOOK_EPOCHS} epochs x "
+          f"1 step, {FIT_VAL_EVENTS} validation events from the function's "
+          f"generator (seed {seen['seed']}) [{card}]: the hook fired "
+          f"{len(recs)} times, after history.json held epochs "
+          f"{[e for _, e in recs]}; val_nll {history[-1]['val_nll']!r}, "
+          f"batch_nll on the function's batch apart {apart!r}")
+    check([r for r, _ in recs] == history
+          and [e for _, e in recs] == list(range(1, X_HOOK_EPOCHS + 1)),
+          "on_epoch_end")
+    check(history[-1]["val_nll"] == apart,
+          f"val_nll {history[-1]['val_nll']} != {apart}")
+    return {"run": run, "launches": launches, "per_step": per_step,
+            "wall": wall, "trace_bytes": size}
+
+
+def _sha(data: bytes) -> str:
+    import hashlib
+    return hashlib.sha256(data).hexdigest()
+
+
+def phase_export(torch, train, yaml_cfg, card, tmp):
+    """(x3) tools/export_release.py on (x2)'s run; the export against the
+    checkpoint on the card; released models re-exported byte for byte;
+    LeanNPE.sample / .nll against encode + *_from_context."""
+    from posteriflow_torch.physics.simulator import simulate_batch
+    from posteriflow_torch.tools import export_release
+    from posteriflow_torch.train.checkpoints import (CheckpointManager,
+                                                     state_dict_to_flax)
+    from posteriflow_torch.train.train_priority import load_priority_net
+    from posteriflow_torch.train.trainer import batch_nll
+    from posteriflow_torch.utils.config import load_config
+    from posteriflow_torch.utils.msgpack_lite import packb
+    out = f"{tmp}/x_release"
+    t0 = time.perf_counter()
+    export_release.main(["--ckpt", f"{train['run']}/ckpt", "--run-dir",
+                         train["run"], "--out", out, "--init-from", RELEASE,
+                         "--device", DEVICE])
+    export_s = time.perf_counter() - t0
+    model, cfg, meta = CheckpointManager.load_release(out, device=DEVICE)
+    state, _, _ = CheckpointManager(f"{train['run']}/ckpt").restore(
+        "best", device=DEVICE)
+    ref = state.model.eval()
+    sim = dataclasses.replace(cfg.sim, real_noise_prob=0.0)
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    batch = simulate_batch(X_BATCH_EVENTS, sim, device=DEVICE, generator=gen)
+    z = torch.randn((X_BATCH_EVENTS, X_DRAWS, cfg.npe.n_params),
+                    generator=gen, device=DEVICE)
+    rank = torch.zeros(X_BATCH_EVENTS, dtype=torch.long, device=DEVICE)
+    with torch.no_grad():
+        nll = [batch_nll(m, batch) for m in (model, ref)]
+        ctx = [m.encode(batch.strain, batch.asd_bands) for m in (model, ref)]
+        draws = [m.sample_from_context(c, rank, X_DRAWS, z=z)[0]
+                 for m, c in zip((model, ref), ctx)]
+        theta = batch.params[:, 0]
+        s_nll = model.nll(batch.strain, theta, rank, batch.asd_bands)
+        s_draws = model.sample(batch.strain, 0, X_DRAWS, batch.asd_bands,
+                               z=z)
+        f_nll = model.nll_from_context(ctx[0], theta, rank)
+    torch.cuda.synchronize()
+    same_export = bool(torch.equal(nll[0], nll[1])
+                       and torch.equal(draws[0], draws[1]))
+    same_entry = bool(torch.equal(s_nll, f_nll)
+                      and torch.equal(s_draws, draws[0]))
+    print(f"(x3) tools/export_release.py on (x2)'s run in {export_s:.2f} s "
+          f"[{card}]: meta keys {sorted(meta)}, init_from "
+          f"{meta['metrics'].get('init_from')}, files "
+          f"{sorted(os.listdir(out))}; CheckpointManager.load_release of the"
+          f" export against the checkpoint on the card, {X_BATCH_EVENTS} "
+          f"events: batch_nll {float(nll[0])!r} / {float(nll[1])!r}, "
+          f"{X_DRAWS} draws with fixed z bit-equal: {same_export}; "
+          f"LeanNPE.nll / .sample against encode + *_from_context bit-equal:"
+          f" {same_entry}")
+    check(same_export, "the export differs from its checkpoint")
+    check(same_entry, "LeanNPE.sample / .nll differ from their parts")
+    check(cfg == load_config(f"{train['run']}/ckpt/best"),
+          "the export's config")
+
+    shas = {}
+    for name, (got, path) in {
+        "npe_r7_best": (packb(state_dict_to_flax(
+            CheckpointManager.load_release(RELEASE, device=DEVICE)[0])),
+            f"{RELEASE}/params.msgpack"),
+        "priority_v7": (packb(state_dict_to_flax(load_priority_net(
+            PRIORITY_RELEASE, device=DEVICE))),
+            f"{PRIORITY_RELEASE}/priority_params.msgpack")}.items():
+        with open(path, "rb") as f:
+            committed = f.read()
+        shas[name] = (_sha(got), _sha(committed), len(got))
+        print(f"(x3) {name} loaded on the card and exported again: sha256 "
+              f"{shas[name][0]} ({len(got)} B), committed "
+              f"{shas[name][1]}")
+        check(got == committed, f"{name} re-export differs")
+    return {"shas": shas, "export_s": export_s}
+
+
+def _kernel_counts(torch, fn):
+    """(kernels, copies and sets) the device runs in one fn() call, by the
+    profiler (None without CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    mem = sum(1 for e in evs if e.name.startswith(("Memcpy", "Memset")))
+    return len(evs) - mem, mem
+
+
+def phase_anchor(torch, plain, rqs_cuda, card, tmp):
+    """(x4) one likelihood call at the sampler's 24 rows;
+    tools/make_anchors.py on one anchor at the report's settings, the
+    launches by part, and the tool's importance correction's cloud."""
+    from posteriflow_torch.inference import dynesty_bridge, importance
+    from posteriflow_torch.inference.dynesty_bridge import prior_transform
+    from posteriflow_torch.inference.importance import \
+        make_marginalized_log_likelihood
+    from posteriflow_torch.inference.pipeline import InferenceEngine
+    from posteriflow_torch.tools import make_anchors
+    engine = InferenceEngine.from_checkpoint(RELEASE, device=DEVICE)
+    spec = next(s for s in make_anchors.ANCHORS if s["name"] == ANCHOR)
+    _, prepared = make_anchors._prepare(engine, spec)
+    log_l = make_marginalized_log_likelihood(prepared.strain, device=DEVICE)
+    theta = prior_transform(np.random.default_rng(5).uniform(
+        size=(LIKE_ROWS, engine.cfg.n_params))).astype(np.float32)
+    like_ms = cuda_time_ms(lambda: log_l(theta), reps=LIKE_REPS)
+    like_ops = _kernel_counts(torch, lambda: log_l(theta))
+    print(f"(x4) one likelihood call at the sampler's {LIKE_ROWS} rows "
+          f"(numpy in, numpy out) [{card}]: {like_ms:.3f} ms by CUDA events "
+          f"over {LIKE_REPS} calls; "
+          + ("device operations not measured" if like_ops is None else
+             f"{like_ops[0]} kernels and {like_ops[1]} copies or sets a "
+             f"call") + ", before the anchor")
+
+    parts = {}
+    run_dynesty, correct = dynesty_bridge.run_dynesty, \
+        importance.importance_correct
+
+    def timed(name, fn):
+        def inner(*a, **kw):
+            n0, t0 = rqs_cuda.KERNEL.launches, time.perf_counter()
+            out = fn(*a, **kw)
+            parts[name] = (rqs_cuda.KERNEL.launches - n0,
+                           time.perf_counter() - t0, out)
+            return out
+        return inner
+    dynesty_bridge.run_dynesty = timed("nested", run_dynesty)
+    importance.importance_correct = timed("is", correct)
+    counts, restore = _count_plain(torch, plain)
+    rqs_cuda.KERNEL.launches = 0
+    try:
+        rep = make_anchors.main([
+            "--only", ANCHOR, "--nlive", str(ANCHOR_NLIVE), "--maxiter",
+            str(ANCHOR_MAXITER), "--n-samples", str(ANCHOR_ROWS), "--out",
+            f"{tmp}/x_anchors.json", "--device", DEVICE])
+    finally:
+        dynesty_bridge.run_dynesty = run_dynesty
+        importance.importance_correct = correct
+        restore()
+    total = rqs_cuda.KERNEL.launches
+    e = rep["anchors"][ANCHOR]
+    ns = parts["nested"][2]
+    stages = parts["is"][2].n_stages
+    batch = max(1, min(24, ANCHOR_NLIVE // 16))
+    iters = (ns["n_like_calls"] - ANCHOR_NLIVE) // (ns["walks"] * batch)
+    layers = 10
+    want = layers + 2 * layers + 10 * layers * (stages - 1)
+    npe_launches = total - parts["nested"][0] - parts["is"][0]
+    js, width = e["summary_is"]["mean_js"], e["summary_is"][
+        "mean_width_ratio"]
+    nested_ms = parts["nested"][1] / (iters * ns["walks"] + 1) * 1e3
+    print(f"(x4) tools/make_anchors.py --only {ANCHOR} --nlive "
+          f"{ANCHOR_NLIVE} --maxiter {ANCHOR_MAXITER} --n-samples "
+          f"{ANCHOR_ROWS} [{card}]: {e['t_total_s']} s (NPE {e['t_npe_s']} "
+          f"s, nested {e['t_nested_s']} s, IS {e['is']['t_is_s']:.2f} s); "
+          f"nested logZ {e['sampler']['logz']:.3f} after {iters} of "
+          f"{ANCHOR_MAXITER // batch} iterations, "
+          f"{e['sampler']['n_like_calls']} likelihood rows in "
+          f"{iters * ns['walks'] + 1} calls, {nested_ms:.2f} ms a call with "
+          f"the sampler's host work"
+          f"; IS logZ {e['is']['logz']:.3f} (ESS {e['is']['ess']:.1f}, "
+          f"{stages} stages); gap {e['logz_gap_is_minus_sampler']:+.3f} "
+          f"nats (band {ANCHOR_GAP}); summary_is mean JS {js:.4f} (<= "
+          f"{ANCHOR_JS_MAX}), mean width ratio {width:.4f}; summary_npe "
+          f"mean JS {e['summary_npe']['mean_js']:.4f}, width "
+          f"{e['summary_npe']['mean_width_ratio']:.4f}; rqs_tile launches "
+          f"{total}: request {npe_launches}, nested {parts['nested'][0]}, "
+          f"IS {parts['is'][0]} (expected {layers} + {want - layers}); "
+          f"plain spline {counts}")
+    check(iters < ANCHOR_MAXITER // batch, "the nested run hit maxiter")
+    check(ANCHOR_GAP[0] <= e["logz_gap_is_minus_sampler"] <= ANCHOR_GAP[1],
+          f"logZ gap {e['logz_gap_is_minus_sampler']}")
+    check(js <= ANCHOR_JS_MAX, f"summary_is JS {js}")
+    check(parts["nested"][0] == 0 and npe_launches == layers
+          and total == want, f"launches {total} ({npe_launches}, "
+          f"{parts['nested'][0]}, {parts['is'][0]}), expected {want}")
+    check(counts == {"forward": 0, "inverse": 0}, f"plain spline {counts}")
+
+    distinct, heaviest = _cloud_weights(parts["is"][2])
+    ladder = parts["is"][2].beta_ladder
+    print(f"(x4) the tool's importance correction [{card}]: ladder {ladder}, "
+          f"Metropolis acceptance {parts['is'][2].mcmc_acceptance}; "
+          f"{distinct} distinct particles, the heaviest holding "
+          f"{heaviest:.4f} of the weight ("
+          + ("degenerate: held to the JAX package's run on the same draws, "
+             f"{ANCHOR_WITNESS}" if heaviest >= ANCHOR_DEGENERATE else
+             f"width ratio {width:.4f} held in {ANCHOR_WIDTH}") + ")")
+    if heaviest >= ANCHOR_DEGENERATE:
+        check(stages == ANCHOR_WITNESS["stages"] and len(ladder) >= 2
+              and ladder[-2] < 0.1, f"a degenerate IS cloud that is not "
+              f"the witnessed one: ladder {ladder}")
+    else:
+        check(ANCHOR_WIDTH[0] <= width <= ANCHOR_WIDTH[1],
+              f"summary_is width ratio {width}")
+
+    return {"launches": total, "entry": e, "iterations": iters,
+            "like_ms": like_ms, "like_ops": like_ops,
+            "nested_ms_a_call": nested_ms}
+
+
+def anchor_rows_timing(torch, plain, rqs_cuda, card):
+    """(x4) rqs_tile inverse at the anchor request's rows beside its
+    bound, after (x2)'s trace."""
+    x, raw, bias = spline_inputs(torch, ANCHOR_ROWS, seed=ANCHOR_ROWS)
+    t = forward_timing(torch, plain, rqs_cuda, x, raw, bias, inverse=True)
+    print(f"(x4) rqs_tile<{K_BINS}, inverse, bias> at the anchor request's "
+          f"{ANCHOR_ROWS} rows [{card}]: "
+          + ("not measured" if t["ms"] is None else
+             f"{t['ms'] * 1e3:.2f} us")
+          + f" (profiler), {t['events_ms'] * 1e3:.2f} us by CUDA events back"
+          f" to back, plain {t['plain_ms'] * 1e3:.1f} us; bound "
+          f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: "
+          f"{rqs_bytes(ANCHOR_ROWS, D_TR, K_BINS)} B)")
+    return t
+
+
+def _cloud_weights(res):
+    """An ISResult -> (its distinct particles, the weight of the heaviest,
+    copies summed)."""
+    w = np.asarray(res.weights, np.float64)
+    _, inv = np.unique(np.asarray(res.samples), axis=0, return_inverse=True)
+    mass = np.bincount(inv.ravel(), weights=w / w.sum())
+    return int(mass.size), float(mass.max())
+
+
+def phase_evidence(card, tmp):
+    """(x5) tools/evidence_validation.py Parts A and C against the
+    analytic truths and the JAX report."""
+    from posteriflow_torch.tools import evidence_validation
+    with open(EV_REPORT) as f:
+        ref = json.load(f)
+    t0 = time.perf_counter()
+    rep = evidence_validation.main(["--device", DEVICE, "--out",
+                                    f"{tmp}/x_evidence.json"])
+    wall = time.perf_counter() - t0
+    out = {}
+    for part in ("synthetic", "synthetic_15d"):
+        p = rep[part]
+        is_bias = p["is_good_proposal"]["bias"]
+        smc = p["prior_smc_vs_walk_length"][-1]
+        print(f"(x5) {part} [{card}]: truth logZ {p['truth_logz']:.6f}; "
+              f"matched-proposal IS bias {is_bias:+.5f} (JAX "
+              f"{ref[part]['is_good_proposal']['bias']:+.5f}, |Δ logz_mean| "
+              f"{abs(p['is_good_proposal']['logz_mean'] - ref[part]['is_good_proposal']['logz_mean']):.2e}"
+              f"); prior-SMC biases by n_mcmc "
+              + ", ".join(f"{r['n_mcmc']}: {r['bias']:+.3f} ± "
+                          f"{r['logz_std']:.3f} ({r['wall_s']} s)"
+                          for r in p["prior_smc_vs_walk_length"]))
+        check(abs(is_bias) <= EV_IS_TOL, f"{part} IS bias {is_bias}")
+        check(abs(smc["bias"]) <= EV_SMC_SIGMAS * smc["logz_std"],
+              f"{part} prior-SMC at n_mcmc {smc['n_mcmc']}: {smc['bias']} "
+              f"beyond {EV_SMC_SIGMAS} x {smc['logz_std']}")
+        out[part] = {"is_bias": is_bias, "smc_bias": smc["bias"],
+                     "smc_std": smc["logz_std"]}
+    nested = rep["synthetic_15d"]["nested_vs_nlive"]
+    print(f"(x5) 15-D nested by nlive [{card}]: "
+          + ", ".join(f"{r['nlive']}: bias {r['bias']:+.4f} "
+                      f"({r['n_like_calls']} rows, {r['wall_s']} s)"
+                      for r in nested) + f"; the tool {wall:.1f} s")
+    check(abs(nested[-1]["bias"]) <= EV_NESTED_TOL,
+          f"nested at nlive {nested[-1]['nlive']}: {nested[-1]['bias']}")
+    out["nested"] = nested
+    out["wall"] = wall
+    return out
+
+
+def phase_fusion(card, tmp):
+    """(x6) tools/priority_fusion_bound.py at its defaults and at
+    FUSION_BATCHES against reports/priority_fusion_bound.json."""
+    from posteriflow_torch.tools import priority_fusion_bound
+    with open(FUSION_REPORT) as f:
+        ref = json.load(f)["pairwise_acc_by_target_sep"]
+    reps, walls = {}, {}
+    for n in (None, FUSION_BATCHES):
+        t0 = time.perf_counter()
+        reps[n] = priority_fusion_bound.main(
+            ["--device", DEVICE, "--out", f"{tmp}/x_fusion_{n}.json"]
+            + ([] if n is None else ["--n-batches", str(n)]))
+        walls[n] = time.perf_counter() - t0
+    got, pairs = (reps[FUSION_BATCHES]["pairwise_acc_by_target_sep"],
+                  reps[FUSION_BATCHES]["n_pairs_by_target_sep"])
+    bad = []
+    for ch in priority_fusion_bound.CHANNELS:
+        for b, r in ref[ch].items():
+            g, g0 = got[ch][b], reps[None]["pairwise_acc_by_target_sep"][
+                ch][b]
+            p = 0.5 * (g + r)
+            sigma = math.sqrt(p * (1 - p) * (1 / FUSION_REF_PAIRS[b]
+                                             + 1 / pairs[b]))
+            band = max(FUSION_BAND, FUSION_SIGMAS * sigma)
+            print(f"(x6) {ch} {b} [{card}]: {g:.4f} on {pairs[b]} pairs "
+                  f"({FUSION_BATCHES} batches; JAX {r:.4f} on "
+                  f"{FUSION_REF_PAIRS[b]}), |Δ| {abs(g - r):.4f} held "
+                  f"within {band:.4f} (σ of the difference {sigma:.4f}); "
+                  f"at the defaults {g0:.4f} on "
+                  f"{reps[None]['n_pairs_by_target_sep'][b]} pairs, |Δ| "
+                  f"{abs(g0 - r):.4f}, within ±{FUSION_BAND}: "
+                  f"{abs(g0 - r) <= FUSION_BAND}")
+            if abs(g - r) > band:
+                bad.append((ch, b, g, r))
+    print(f"(x6) the tool at its defaults ({reps[None]['n_batches']} "
+          f"batches) in {walls[None]:.2f} s, at {FUSION_BATCHES} batches in "
+          f"{walls[FUSION_BATCHES]:.2f} s [{card}]")
+    check(not bad, f"fusion bound bins outside their bands: {bad}")
+    return {"got": got, "pairs": pairs, "wall": walls[None],
+            "wall_long": walls[FUSION_BATCHES]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3631,15 +4163,27 @@ def main() -> int:
                               f"{tmp}/bank")
             val = phase_validate(torch, plain, rqs_cuda, train_cfg, card,
                                  f"{tmp}/bank")
-        t0 = time.perf_counter()
-        lbk = phase_lb_kernels(torch, plain, rqs_cuda, card,
-                               (LB_V1_CHUNK, LB_V1_CHUNK * LB_V1_POST))
-        lbs = phase_lb_serve(torch, plain, rqs_cuda, card)
-        lbv = phase_lb_validate(torch, plain, rqs_cuda, card)
-        lbt = phase_lb_train(torch, plain, rqs_cuda, card)
-        lb1 = phase_lb_v1(torch, plain, rqs_cuda, card)
-        lb_s = time.perf_counter() - t0
-        print(f"(w) long-BNS phases done in {lb_s:.1f} s [{card}]")
+            t0 = time.perf_counter()
+            lbk = phase_lb_kernels(torch, plain, rqs_cuda, card,
+                                   (LB_V1_CHUNK, LB_V1_CHUNK * LB_V1_POST))
+            lbs = phase_lb_serve(torch, plain, rqs_cuda, card)
+            lbv = phase_lb_validate(torch, plain, rqs_cuda, card)
+            lbt = phase_lb_train(torch, plain, rqs_cuda, card)
+            lb1 = phase_lb_v1(torch, plain, rqs_cuda, card)
+            lb_s = time.perf_counter() - t0
+            print(f"(w) long-BNS phases done in {lb_s:.1f} s [{card}]")
+            t0 = time.perf_counter()
+            yaml_cfg = phase_configs(card)
+            xt = phase_train_yaml(torch, plain, rqs_cuda, yaml_cfg, card,
+                                  f"{tmp}/bank", tmp)
+            phase_export(torch, xt, yaml_cfg, card, tmp)
+            x_rows = anchor_rows_timing(torch, plain, rqs_cuda, card)
+            xa = phase_anchor(torch, plain, rqs_cuda, card, tmp)
+            xv = phase_evidence(card, tmp)
+            phase_fusion(card, tmp)
+            x_s = time.perf_counter() - t0
+            print(f"(x) release-path and anchor phases done in {x_s:.1f} s "
+                  f"[{card}]")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3680,7 +4224,12 @@ def main() -> int:
                              "twin_grid 4 x 4 x 2 twins (v)":
                                  val["twin"]["launches"],
                              f"importance_validation {len(IV_CASES)} cases "
-                             f"(v)": val["iv"]["launches"]},
+                             f"(v)": val["iv"]["launches"],
+                             f"train_npe --config {X_CONFIG} 1 epoch x "
+                             f"{X_STEPS} steps with the bank (x2)":
+                                 xt["launches"][0],
+                             f"one anchor, {ANCHOR_ROWS} draws and their "
+                             f"importance correction (x4)": xa["launches"]},
         "max_abs_err": max(errs["inverse"][0], errs["forward"][0]),
         "max_abs_err_logdet": max(errs["inverse"][1], errs["forward"][1]),
         "ms": k_ms, "plain_ms": p_ms,
@@ -3696,6 +4245,7 @@ def main() -> int:
         f"rows_{VAL_CHUNK * VAL_POST}_inverse_bias":
             val["timing"][VAL_CHUNK * VAL_POST],
         f"rows_{VAL_CHUNK}_forward_bias": val["timing"][VAL_CHUNK],
+        f"rows_{ANCHOR_ROWS}_inverse_bias": x_rows,
         "library_ms": None,
     }, {
         "name": "rqs_grad<16, bias> (RQS spline backward, training)",
@@ -3712,7 +4262,10 @@ def main() -> int:
                              f"train {FEED_STEPS} steps from the host feed "
                              f"(u)": bank["feed"]["launches"][1],
                              f"fit(bank=) 1 epoch x {BANK_FIT_STEPS} "
-                             f"steps (u)": bank["fit"]["launches"][1]},
+                             f"steps (u)": bank["fit"]["launches"][1],
+                             f"train_npe --config {X_CONFIG} 1 epoch x "
+                             f"{X_STEPS} steps with the bank (x2)":
+                                 xt["launches"][1]},
         "max_abs_err": grad["max_abs_err"],
         "max_rel_err": grad["max_rel_err"],
         "train_step_vs_plain": parity["kernels / plain on the card"],
@@ -3814,7 +4367,12 @@ def main() -> int:
           f"{LB_POST} {lbv['wall']:.2f} s, training "
           f"{lbt['steps_per_s']:.2f} steps/s at batch {LB_TRAIN_BATCH}; "
           f"long_bns_v1 validation at {LB_V1_EVENTS} x {LB_V1_POST} "
-          f"{lb1['wall']:.2f} s")
+          f"{lb1['wall']:.2f} s; train_npe from the YAML {xt['wall']:.1f} s "
+          f"(trace on); anchor {ANCHOR} {xa['entry']['t_total_s']} s "
+          f"(nested {xa['entry']['t_nested_s']} s, a {LIKE_ROWS}-row "
+          f"likelihood call {xa['like_ms']:.3f} ms), logZ gap "
+          f"{xa['entry']['logz_gap_is_minus_sampler']:+.3f}; evidence "
+          f"validation {xv['wall']:.1f} s; phase x {x_s:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

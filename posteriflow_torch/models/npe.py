@@ -107,9 +107,31 @@ class LeanNPE(nn.Module):
         y = self.scaler.wrap(y)
         return self.scaler.denormalize(y), y, log_q
 
+    def nll(self, strain: torch.Tensor, theta_phys: torch.Tensor,
+            rank: torch.Tensor,
+            asd_bands: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """NLL [B] of physical parameters given strain: encode, then
+        nll_from_context."""
+        return self.nll_from_context(self.encode(strain, asd_bands),
+                                     theta_phys, rank)
+
+    def sample(self, strain: torch.Tensor, rank: int = 0,
+               n_samples: int = 256,
+               asd_bands: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """strain [B, 3, T] -> physical samples [B, n, P] of signal `rank`:
+        encode, then sample_from_context with base draws from `generator`
+        or the given z (JAX's key)."""
+        context = self.encode(strain, asd_bands)
+        r = torch.full((context.shape[0],), rank, dtype=torch.long,
+                       device=context.device)
+        theta, _, _ = self.sample_from_context(context, r, n_samples,
+                                               generator=generator, z=z)
+        return theta
+
     def forward(self, strain: torch.Tensor, theta_phys: torch.Tensor,
                 rank: torch.Tensor,
                 asd_bands: Optional[torch.Tensor] = None) -> torch.Tensor:
         """NLL of physical parameters given strain."""
-        return self.nll_from_context(self.encode(strain, asd_bands),
-                                     theta_phys, rank)
+        return self.nll(strain, theta_phys, rank, asd_bands)

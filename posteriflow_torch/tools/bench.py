@@ -2,9 +2,12 @@
 
     python -m posteriflow_torch.tools.bench [--release DIR] [--device cuda]
 
-Loads the release (default: the flagship named in model_release/FLAGSHIP),
-simulates one batch of 8 events with the release's own SimConfig (from its
-meta.json) through physics.simulator.simulate_batch, encodes it once, then
+Reads the model and simulator config from the YAML config, as bench.py
+does (configs/npe_r6.yaml, the 15-D flagship's), and the weights from the
+release (default: the flagship named in model_release/FLAGSHIP, whose
+model config must equal the YAML's), simulates one batch of 8 events with
+the config's SimConfig through physics.simulator.simulate_batch, encodes
+it once, then
 times 10 sampling calls of 16384 draws per event
 (LeanNPE.sample_from_context: base draws, coupling-flow inverse with the
 CUDA spline, wrap, denormalize) after one warm-up call, synchronizing the
@@ -29,12 +32,24 @@ from typing import Optional
 import torch
 
 from posteriflow_torch.inference.pipeline import InferenceEngine
-from posteriflow_torch.physics.simulator import (sim_config_from_dict,
-                                                 simulate_batch)
+from posteriflow_torch.physics.simulator import simulate_batch
 from posteriflow_torch.train.checkpoints import load_release
+from posteriflow_torch.utils.config import load_config
 
 ROOT = Path(__file__).resolve().parents[2]
+CONFIG = ROOT / "configs" / "npe_r6.yaml"   # bench.py:36-38
 BASELINE_DRAWS_PER_SEC = 5000.0 / 4.465     # bench.py's reference figure
+
+
+def bench_config(release):
+    """-> (the release's state_dict, NPEConfig, SimConfig): the model and
+    simulator config from CONFIG, the weights from `release`. ValueError
+    if the release's model config is not CONFIG's."""
+    state_dict, rel_cfg, _ = load_release(release)
+    cfg = load_config(CONFIG)
+    if cfg.npe != rel_cfg:
+        raise ValueError(f"{release}'s model config differs from {CONFIG}'s")
+    return state_dict, cfg.npe, cfg.sim
 
 
 def card_name(device: torch.device) -> str:
@@ -59,8 +74,7 @@ def run(release, device="cuda", n_events: int = 8, n_draws: int = 16384,
     """bench.py's protocol on `device`; the batch and the base draws come
     from `generator` (a generator on the device seeded with 1 if None)."""
     device = torch.device(device)
-    state_dict, cfg, meta = load_release(release)
-    sim = sim_config_from_dict(meta["config"]["sim"])
+    state_dict, cfg, sim = bench_config(release)
     engine = InferenceEngine(state_dict, cfg, device=device)
     gen = generator or torch.Generator(device=device).manual_seed(1)
 

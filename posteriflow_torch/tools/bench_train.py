@@ -1,11 +1,12 @@
 """Training throughput of the port: steps/s, events/s and model FLOPs
 utilisation (the twin of scripts/bench_train.py).
 
-    python -m posteriflow_torch.tools.bench_train [--config DIR_OR_JSON]
+    python -m posteriflow_torch.tools.bench_train [--config YAML_OR_JSON]
         [--batch 128] [--steps 20] [--init-from RELEASE] [--no-bank]
-        [--device cuda] [--out FILE]
+        [--peak-tflops 989] [--device cuda] [--out FILE]
 
-Builds the TrainConfig (default: the flagship release's meta.json) and a
+Builds the TrainConfig (default: configs/npe_production.yaml, as the JAX
+script; `--config model_release/npe_r7_best` for the flagship) and a
 fresh TrainState (or the release's weights with --init-from), runs warm-up
 steps, then times `--steps` full steps (simulate → encode → per-rank NLL →
 backward → clip → AdamW) as one steady-state window that ends in a device
@@ -19,7 +20,9 @@ over one whole step: the matrix products and convolutions of the forward
 and backward passes. The RQS spline kernels (forward and backward, custom
 CUDA), the simulator's FFTs and the elementwise work are not counted, so
 the MFU is a floor. MFU = counted FLOPs × steps/s over the card's dense
-bf16 peak (PEAK_BF16_FLOPS, NVIDIA's H100 SXM data sheet at 700 W).
+bf16 peak (--peak-tflops, default PEAK_BF16_FLOPS: NVIDIA's H100 SXM data
+sheet at 700 W; the JAX script's 197 is a TPU's). The JAX script's --prng
+picks JAX's bit generator, which torch has no counterpart of.
 
 Prints ONE JSON line: steps_per_sec, events_per_sec, flops_per_step,
 achieved_tflops, mfu, the final NLL, real_noise_prob (0 without a bank),
@@ -39,7 +42,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[2]
-FLAGSHIP = ROOT / "model_release" / "npe_r7_best"
+CONFIG = ROOT / "configs" / "npe_production.yaml"   # the JAX script's
 PEAK_BF16_FLOPS = 989e12        # H100 SXM, dense bf16 (NVIDIA data sheet)
 BANK_SEGMENTS, BANK_SEED = 8, 7   # the JAX script's synthetic bank
 
@@ -59,7 +62,8 @@ def flops_per_step(state, batch) -> int:
 
 
 def run(cfg, device="cuda", steps: int = 20, warmup: int = 2,
-        init_from=None, seed: int = 0, bank=None) -> dict:
+        init_from=None, seed: int = 0, bank=None,
+        peak_flops: float = PEAK_BF16_FLOPS) -> dict:
     """The benchmark on `device` (mixing in `bank`'s real noise with
     cfg.sim.real_noise_prob) -> the report dict."""
     from posteriflow_torch.physics.simulator import simulate_batch
@@ -111,8 +115,8 @@ def run(cfg, device="cuda", steps: int = 20, warmup: int = 2,
         "flops_counted": "matmuls and convolutions, forward and backward; "
                          "not the spline kernels, FFTs or elementwise work",
         "achieved_tflops": achieved / 1e12,
-        "peak_tflops": PEAK_BF16_FLOPS / 1e12,
-        "mfu": achieved / PEAK_BF16_FLOPS,
+        "peak_tflops": peak_flops / 1e12,
+        "mfu": achieved / peak_flops,
         "final_nll": final_nll,
     }
 
@@ -120,9 +124,9 @@ def run(cfg, device="cuda", steps: int = 20, warmup: int = 2,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--config", default=str(FLAGSHIP),
-                    help="JSON TrainConfig, a release's meta.json or a "
-                         "release directory")
+    ap.add_argument("--config", default=str(CONFIG),
+                    help="YAML or JSON TrainConfig, a release's meta.json "
+                         "or a release directory")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=2)
@@ -130,6 +134,10 @@ def main(argv=None):
                     help="a release directory whose weights to train")
     ap.add_argument("--no-bank", action="store_true",
                     help="no synthetic noise bank: all events Gaussian")
+    ap.add_argument("--peak-tflops", type=float,
+                    default=PEAK_BF16_FLOPS / 1e12,
+                    help="the card's dense bf16 peak in TFLOP/s (H100 SXM: "
+                         "989)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
@@ -146,7 +154,8 @@ def main(argv=None):
             n_segments=BANK_SEGMENTS, psd_bands=cfg.sim.psd_bands,
             device=args.device)
     report = run(cfg, device=args.device, steps=args.steps,
-                 warmup=args.warmup, init_from=args.init_from, bank=bank)
+                 warmup=args.warmup, init_from=args.init_from, bank=bank,
+                 peak_flops=args.peak_tflops * 1e12)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=2))

@@ -8,13 +8,22 @@ are simulated on the device every step, nothing is read from disk.
     python -m posteriflow_torch.tools.train_npe --device cpu --config tiny.json \\
         --outdir /tmp/run --epochs 1 --steps-per-epoch 2 --batch 4
 
---config takes a JSON TrainConfig (or overrides of it), a release's
-meta.json or a release directory. --noise-bank loads a bank directory
-(tools/make_noise_bank.py writes one) onto the device: training mixes in
-its real noise with the config's real_noise_prob (0.5 if that is not
-positive) and validates on a real-noise batch too. A real_noise_prob above
-0 without a bank is an error, as in the JAX script. The mesh and the PRNG
-choice of the JAX script wait for their slices of the port.
+    python -m posteriflow_torch.tools.train_npe --config configs/npe_r6.yaml \\
+        --init-from model_release/npe_r7_best --outdir model/ft \\
+        --profile-dir model/ft/trace
+
+--config takes a YAML TrainConfig (overrides of its defaults, as
+configs/*.yaml), a JSON one, a release's meta.json or a release directory.
+--encoder, --premerger, --psd-cond and --det-dropout override the model
+and simulator config as the JAX script's do. --noise-bank loads a bank
+directory (tools/make_noise_bank.py writes one) onto the device: training
+mixes in its real noise with the config's real_noise_prob (0.5 if that is
+not positive) and validates on a real-noise batch too. A real_noise_prob
+above 0 without a bank is an error, as in the JAX script. --profile-dir
+writes a torch.profiler trace of the first epoch to <dir>/trace.json.
+--mesh raises until the data-parallel slice (ROADMAP §1 item 5); the JAX
+script's --prng picks JAX's bit generator, which torch has no counterpart
+of, so it is not taken.
 """
 
 from __future__ import annotations
@@ -27,13 +36,18 @@ import logging
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--config", help="JSON TrainConfig, a release's "
-                                     "meta.json or a release directory")
+    ap.add_argument("--config", help="YAML or JSON TrainConfig, a "
+                                     "release's meta.json or a release "
+                                     "directory")
     ap.add_argument("--outdir", default="model/lean_npe")
     ap.add_argument("--epochs", type=int, default=60)
     ap.add_argument("--steps-per-epoch", type=int, default=200)
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--encoder", choices=("conv", "coherent"), default=None)
+    ap.add_argument("--premerger", action="store_true")
+    ap.add_argument("--det-dropout", type=float, default=None)
+    ap.add_argument("--psd-cond", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--init-from", default=None,
@@ -52,25 +66,44 @@ def main(argv=None):
                     default=None)
     ap.add_argument("--grad-clip", type=float, default=None,
                     help="threshold for global mode / x0.01 factor for agc")
+    ap.add_argument("--mesh", action="store_true",
+                    help="shard the step over all visible devices (not yet "
+                         "ported: ROADMAP §1 item 5)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the first epoch "
+                         "to <dir>/trace.json")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError("--mesh: data parallelism is ROADMAP §1 "
+                                  "item 5, not yet ported")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     from posteriflow_torch.train.loop import fit
     from posteriflow_torch.train.trainer import TrainConfig
     from posteriflow_torch.utils.config import load_config
+    from posteriflow_torch.utils.logging import torch_trace
 
     cfg = load_config(args.config) if args.config else TrainConfig()
-    overrides = {"total_steps": args.epochs * args.steps_per_epoch}
+    npe, sim = cfg.npe, cfg.sim
+    if args.encoder:
+        npe = dataclasses.replace(npe, encoder_type=args.encoder)
+    if args.premerger:
+        npe = dataclasses.replace(npe, premerger=True)
+    if args.psd_cond:
+        npe = dataclasses.replace(npe, psd_cond=True)
+    if args.det_dropout is not None:
+        sim = dataclasses.replace(sim, det_dropout=args.det_dropout)
+    if args.real_noise_prob is not None:
+        sim = dataclasses.replace(sim, real_noise_prob=args.real_noise_prob)
+    overrides = {"npe": npe, "sim": sim,
+                 "total_steps": args.epochs * args.steps_per_epoch}
     for field, value in (("batch_size", args.batch), ("lr", args.lr),
                          ("grad_clip_mode", args.grad_clip_mode),
                          ("grad_clip", args.grad_clip)):
         if value is not None:
             overrides[field] = value
-    if args.real_noise_prob is not None:
-        overrides["sim"] = dataclasses.replace(
-            cfg.sim, real_noise_prob=args.real_noise_prob)
     cfg = dataclasses.replace(cfg, **overrides)
 
     bank = None
@@ -86,11 +119,14 @@ def main(argv=None):
             args.noise_bank, bank.n_segments, cfg.sim.real_noise_prob)
     elif cfg.sim.real_noise_prob > 0.0:
         ap.error("--real-noise-prob needs --noise-bank")
-    _, history = fit(cfg, args.outdir, epochs=args.epochs,
-                     steps_per_epoch=args.steps_per_epoch, seed=args.seed,
-                     ckpt_every=args.ckpt_every, init_from=args.init_from,
-                     resume_from=args.resume_from, device=args.device,
-                     bank=bank)
+    with torch_trace(args.profile_dir, args.device) as trace:
+        _, history = fit(cfg, args.outdir, epochs=args.epochs,
+                         steps_per_epoch=args.steps_per_epoch,
+                         seed=args.seed, ckpt_every=args.ckpt_every,
+                         init_from=args.init_from,
+                         resume_from=args.resume_from, device=args.device,
+                         bank=bank,
+                         on_epoch_end=trace and (lambda rec: trace.stop()))
     return history
 
 

@@ -6,7 +6,9 @@ and orbax:
   - a release (params.msgpack + meta.json) is decoded by
     utils/msgpack_lite.py and its flax tree carried into a torch state_dict
     by `flax_to_state_dict` (`load_release`); `flax_view` goes back, leaf
-    by leaf, to the flax layout;
+    by leaf, to the flax layout, and `state_dict_to_flax` carries a whole
+    model back into flax's tree, which `msgpack_lite.packb` writes as
+    flax does (tools/export_release.py);
   - a training checkpoint is `<root>/<name>/state.pt` (the model's
     state_dict, the optimizer's moments and its step) beside `meta.json`
     in the JAX package's schema (the whole TrainConfig, the epoch and the
@@ -28,7 +30,7 @@ from torch import nn
 from posteriflow_torch.models.encoder import MultiHeadDotProductAttention
 from posteriflow_torch.models.npe import NPEConfig
 from posteriflow_torch.physics.simulator import sim_config_from_dict
-from posteriflow_torch.utils.msgpack_lite import unpackb
+from posteriflow_torch.utils.msgpack_lite import packb, unpackb
 
 _MHA_PROJ = ("query", "key", "value")
 # the DenseGeneral projections of long-BNS attention
@@ -94,6 +96,68 @@ def flax_to_state_dict(params: dict) -> Dict[str, torch.Tensor]:
             leaf = "weight"
         sd[".".join(mods + [leaf])] = torch.tensor(np.ascontiguousarray(a))
     return sd
+
+
+def _flax_leaf(model: nn.Module, name: str,
+               t: torch.Tensor) -> Tuple[tuple, torch.Tensor]:
+    """The state_dict entry `name` of `model` -> (its flax path, the tensor
+    in flax's layout): the inverse of `flax_to_state_dict` for one entry.
+    Linear weights become Dense kernels [in, out]; attention projections
+    (query/key/value, long-BNS q/k/v) kernels [in, heads, hd] with [heads,
+    hd] biases, the output projection (out, long-BNS o) [heads, hd, out];
+    Conv1d weights [k, in, out]; LayerNorm weights `scale`, Embedding
+    weights `embedding`."""
+    mod_path, _, leaf = name.rpartition(".")
+    if not mod_path:                        # a parameter of the model itself
+        return (leaf,), t
+    parent_path, _, child = mod_path.rpartition(".")
+    mod = model.get_submodule(mod_path)
+    heads = getattr(model.get_submodule(parent_path), "n_heads", None)
+    if isinstance(mod, nn.Linear):
+        if heads and child in _MHA_PROJ + _LB_PROJ:
+            t = (t.T.reshape(t.shape[1], heads, -1) if leaf == "weight"
+                 else t.reshape(heads, -1))
+        elif heads and child in _HEAD_OUT and leaf == "weight":
+            t = t.T.reshape(heads, -1, t.shape[0])
+        elif leaf == "weight":
+            t = t.T
+        leaf = "kernel" if leaf == "weight" else leaf
+    elif isinstance(mod, nn.Conv1d) and leaf == "weight":
+        t, leaf = t.permute(2, 1, 0), "kernel"
+    elif isinstance(mod, nn.LayerNorm) and leaf == "weight":
+        leaf = "scale"
+    elif isinstance(mod, nn.Embedding) and leaf == "weight":
+        leaf = "embedding"
+    return tuple(mod_path.split(".")) + (leaf,), t
+
+
+def _sorted_tree(tree: dict) -> dict:
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
+
+
+def state_dict_to_flax(model: nn.Module) -> dict:
+    """The model's parameters -> flax's parameter tree {"params": {...}}
+    of float32 numpy arrays, every level in flax's (sorted) key order, the
+    layout of each leaf as the JAX package's module has it (`_flax_leaf`).
+    packb of the tree is the bytes flax.serialization.to_bytes writes."""
+    tree: dict = {}
+    for name, t in model.state_dict().items():
+        path, a = _flax_leaf(model, name, t.detach())
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = a.to(device="cpu", dtype=torch.float32) \
+            .contiguous().numpy().copy()
+    return {"params": _sorted_tree(tree)}
+
+
+def write_params(model: nn.Module, path) -> bytes:
+    """Write the model's flax tree to `path` as flax's msgpack (a
+    release's params.msgpack); returns the bytes."""
+    data = packb(state_dict_to_flax(model))
+    Path(path).write_bytes(data)
+    return data
 
 
 def load_release(release_dir) -> Tuple[Dict[str, torch.Tensor], NPEConfig,
@@ -246,13 +310,27 @@ class CheckpointManager:
         state.opt.load_state_dict(saved["opt"])
         return state, cfg, meta
 
+    @staticmethod
+    def load_release(release_dir, device="cuda"):
+        """A release directory (params.msgpack + meta.json) -> (LeanNPE on
+        `device` in eval mode, TrainConfig, meta): the model rebuilt from
+        the config saved beside the weights
+        (posteriflow_tpu/train/checkpoints.py:100-111, which returns the
+        flax params in the model's place)."""
+        from posteriflow_torch.models.npe import LeanNPE
+        state_dict, _, meta = load_release(release_dir)
+        cfg = train_cfg_from_dict(meta["config"])
+        model = LeanNPE(cfg.npe)
+        model.load_state_dict(state_dict, strict=True)
+        return model.to(device).eval(), cfg, meta
+
     def fine_tune_restore(self, name: str, new_cfg, device="cuda"):
         """-> (state, meta): the checkpoint's weights under a FRESH
         optimizer and schedule for `new_cfg`."""
-        from posteriflow_torch.train.trainer import Optimizer
+        from posteriflow_torch.train.trainer import make_optimizer
         state, _, meta = self.restore(name, device=device)
         state.cfg = new_cfg
-        state.opt = Optimizer(state.model, new_cfg)
+        state.opt = make_optimizer(new_cfg, state.model)
         return state, meta
 
 

@@ -1,8 +1,8 @@
 """The training loop (torch): epochs of simulate + train steps, per-epoch
 diagnostics, calibration-gated checkpoint selection, history.json.
 
-Port of posteriflow_tpu/train/loop.py:39-232 without the mesh (a later
-slice):
+Port of posteriflow_tpu/train/loop.py:39-232 without the mesh (ROADMAP
+§1 item 5):
 
   - a fixed validation batch (the same seed every epoch) so that metrics
     compare across epochs; with a noise bank, real-noise mixing in
@@ -24,7 +24,7 @@ import json
 import logging
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,8 +74,15 @@ def fit(cfg: TrainConfig, outdir, epochs: int = 60,
         gate: CalibrationGate = CalibrationGate(), ckpt_every: int = 0,
         n_val_events: int = 256, init_from: Optional[str] = None,
         resume_from: Optional[str] = None, device="cuda",
-        bank: Optional[NoiseBank] = None):
+        bank: Optional[NoiseBank] = None,
+        val_batch_fn: Optional[Callable] = None,
+        on_epoch_end: Optional[Callable[[dict], None]] = None):
     """Train LeanNPE on `device`; returns (state, history).
+
+    val_batch_fn(generator) -> EventBatch replaces the default Gaussian
+    validation batch; it is given the generator on `device` that the
+    default batch is drawn from (JAX's k_val). on_epoch_end(rec) is called
+    with each epoch's history record after history.json is written.
 
     bank: a NoiseBank on `device`; training events take its real noise
     with cfg.sim.real_noise_prob, a fixed batch of n_val_events all of real
@@ -136,8 +143,11 @@ def fit(cfg: TrainConfig, outdir, epochs: int = 60,
     diagnostics = make_diagnostics(cfg, n_events=n_val_events)
     cal_metrics_fn = make_calibration_metrics(cfg)
 
-    val_batch = simulate_batch(n_val_events, cfg.sim, device=dev,
-                               generator=_generator(dev, seed, _VAL))
+    if val_batch_fn is None:
+        val_batch = simulate_batch(n_val_events, cfg.sim, device=dev,
+                                   generator=_generator(dev, seed, _VAL))
+    else:
+        val_batch = val_batch_fn(_generator(dev, seed, _VAL))
     val_real = None
     if bank is not None:
         val_real = simulate_batch(
@@ -201,6 +211,8 @@ def fit(cfg: TrainConfig, outdir, epochs: int = 60,
             ckpts.save("best", state, cfg, rec, epoch)
 
         (outdir / "history.json").write_text(json.dumps(history, indent=2))
+        if on_epoch_end:
+            on_epoch_end(rec)
 
     log.info("done. best epoch %d -> %s", best_epoch,
              outdir / "ckpt" / "best")

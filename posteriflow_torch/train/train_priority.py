@@ -10,10 +10,11 @@ targets are the per-signal network SNRs over the event's loudest.
 `make_priority_batch` splits its random draws from their use: the
 simulation's inputs (prior parameters, signal counts and event draws) and
 the jitter normals may be handed in, so a test can give it JAX's.
-`fit_priority` writes `state.pt` (the torch state_dict) with `net.json`
-and `history.json` in the JAX package's schema; `load_priority_net` reads
-that directory or a released flax `priority_params.msgpack` (through
-utils/msgpack_lite.py) with its `net.json` sidecar.
+`fit_priority` writes `priority_params.msgpack` (flax's bytes, through
+train/checkpoints.write_params) with `net.json` and `history.json` in the
+JAX package's schema; `load_priority_net` reads that directory, a released
+`priority_params.msgpack` (through utils/msgpack_lite.py) with its
+`net.json` sidecar, or an earlier port run's `state.pt`.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from posteriflow_torch.physics.simulator import (SimConfig, SimDraws,
                                                  design_asd, simulate_batch,
                                                  signal_snr_amp_only)
 from posteriflow_torch.prior import PriorConfig
-from posteriflow_torch.train.checkpoints import flax_to_state_dict
+from posteriflow_torch.train.checkpoints import (flax_to_state_dict,
+                                                 write_params)
 from posteriflow_torch.train.trainer import (adam_update_, backward,
                                              init_params, warmup_cosine)
 from posteriflow_torch.utils.msgpack_lite import unpackb
@@ -233,7 +235,9 @@ def fit_priority(outdir, cfg: PriorityTrainConfig = PriorityTrainConfig(),
                  steps: int = 500, seed: int = 0, eval_every: int = 100,
                  device="cuda"):
     """Train a PriorityNet on `device`; returns (net, history). Writes
-    state.pt, net.json and history.json under outdir. Batches come from a
+    priority_params.msgpack (flax's bytes, which the JAX package's
+    load_priority_net reads), net.json and history.json under outdir, as
+    posteriflow_tpu/train/train_priority.py:207-213 does. Batches come from a
     generator on `device` seeded with `seed`; the evaluation batch of step
     i from one seeded with seed + 999 and i; the initial weights from a
     CPU generator seeded with `seed`."""
@@ -263,7 +267,7 @@ def fit_priority(outdir, cfg: PriorityTrainConfig = PriorityTrainConfig(),
             log.info("step %4d | loss %.4f | top-1 %.3f", i + 1,
                      rec["loss"], acc)
 
-    torch.save(net.state_dict(), outdir / "state.pt")
+    write_params(net, outdir / "priority_params.msgpack")
     (outdir / "net.json").write_text(json.dumps(_net_meta(cfg)))
     (outdir / "history.json").write_text(json.dumps(history, indent=2))
     return net, history
@@ -278,7 +282,8 @@ def load_priority_net(path, d_model: int = 64, use_energy: bool = False,
                       ) -> PriorityNet:
     """A PriorityNet in eval mode on `device` from a released flax
     `priority_params.msgpack` (or a directory holding one), or from a
-    directory that `fit_priority` wrote (state.pt). A `net.json` beside
+    directory that `fit_priority` wrote (priority_params.msgpack; earlier
+    port runs wrote state.pt, which is read too). A `net.json` beside
     the weights overrides the architecture arguments; use_dt and
     residual_snr default to False. Every leaf must match by name and
     shape: a missing or left-over leaf raises."""

@@ -252,6 +252,15 @@ class Optimizer:
             self.nu[i].copy_(state["nu"][n])
 
 
+def make_optimizer(cfg: TrainConfig, model: LeanNPE) -> Optimizer:
+    """The optimizer of cfg over the model's parameters: its clip
+    (cfg.grad_clip_mode), AdamW with weight decay cfg.weight_decay and the
+    warmup-cosine schedule (posteriflow_tpu/train/trainer.py:71-82, whose
+    optax chain is bound to the parameters later; a torch optimizer holds
+    them, so it takes the model)."""
+    return Optimizer(model, cfg)
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model, its optimizer and the config they were built from."""
@@ -269,7 +278,7 @@ def init_state(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
     """A fresh model with flax's initial distribution (drawn on the CPU
     from `generator`), moved to `device`, with a fresh optimizer."""
     model = init_params(LeanNPE(cfg.npe), generator).to(device)
-    return TrainState(model=model, opt=Optimizer(model, cfg), cfg=cfg)
+    return TrainState(model=model, opt=make_optimizer(cfg, model), cfg=cfg)
 
 
 def batch_nll(model: LeanNPE, batch: EventBatch) -> torch.Tensor:

@@ -11,7 +11,9 @@ request on an injection, importance-corrects it through one tempered stage
 TrainConfig at batch 2, and another on a batch of the flagship's SimConfig
 simulated with a synthetic noise bank; it serves long_bns_v4 on its stored
 trigger grid and long_bns_v1, and trains a tiny long-BNS model for a step
-with tools/train_long_bns.py. chip_smoke.py without a GPU exits
+with tools/train_long_bns.py; it reads configs/npe_r6.yaml and exports the
+flagship (packb) and loads the export back (CheckpointManager.load_release).
+chip_smoke.py without a GPU exits
 non-zero, fast, with no result line. A scan of the sources checks what
 they import: h5py, gwpy, gwosc, matplotlib, bilby and pandas only inside
 the functions that need them (the plots, to_bilby), the rest nowhere.
@@ -133,6 +135,22 @@ with tempfile.TemporaryDirectory() as tmp:
         ["--device", "cpu", "--outdir", tmp, "--steps", "1", "--batch", "2",
          "--d-model", "16", "--n-layers", "1", "--n-heads", "2",
          "--cal-events", "2", "--cal-post", "4"])
+# the release path: the YAML config, and the flagship exported and read back
+from pathlib import Path
+from posteriflow_torch.train.checkpoints import (CheckpointManager,
+                                                 write_params)
+yaml_cfg = load_config("configs/npe_r6.yaml")
+with tempfile.TemporaryDirectory() as tmp:
+    data = write_params(eng.model, Path(tmp) / "params.msgpack")
+    (Path(tmp) / "meta.json").write_text(
+        open("model_release/npe_r7_best/meta.json").read())
+    rt_model, rt_cfg, _ = CheckpointManager.load_release(tmp, device="cpu")
+    export = [data == open("model_release/npe_r7_best/params.msgpack",
+                           "rb").read(),
+              all(torch.equal(a, b) for a, b in zip(
+                  eng.model.state_dict().values(),
+                  rt_model.state_dict().values())),
+              yaml_cfg.npe == rt_cfg.npe]
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                   "finite": bool(np.isfinite(res.samples).all()
@@ -158,7 +176,7 @@ print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                                bool(np.isfinite(lb_nll)),
                                list(lb_draws.shape),
                                bool(np.isfinite(v1_nll)), len(lb_hist)],
-                  "loaded": loaded}))
+                  "export": export, "loaded": loaded}))
 """
 
 
@@ -199,7 +217,11 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
         "inference.plots", "tools.validate_checkpoint",
         "tools.npe_diagnostics", "tools.twin_grid",
         "tools.importance_validation", "models.long_bns",
-        "tools.validate_long_bns", "tools.train_long_bns")}
+        "tools.validate_long_bns", "tools.train_long_bns",
+        "tools.export_release", "utils.noise_marginalization",
+        "tools.calibrate_priority_net", "tools.priority_fusion_bound",
+        "tools.make_anchors", "tools.anchor_convergence",
+        "tools.evidence_validation")}
     assert expected <= set(out["modules"])
     assert out["shape"] == [64, 15] and out["finite"]
     assert out["verdict"] in ("HIGH", "MEDIUM", "LOW") and out["gate"]
@@ -211,6 +233,7 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
     assert out["ranking"] == [[0, 1], True]
     assert out["decompose"] == [1, True]
     assert out["long_bns"] == ["trigger", 168, True, [2, 16, 11], True, 1]
+    assert out["export"] == [True, True, True]
     assert out["loaded"] == []
 
 

@@ -140,8 +140,8 @@ def test_from_checkpoint_of_a_missing_path_raises_and_writes_nothing(
 
 def test_load_config(tmp_path):
     """A release's meta.json and its directory give its TrainConfig; a
-    JSON of overrides merges over the defaults; an unknown key and a YAML
-    file raise."""
+    JSON or YAML of overrides merges over the defaults; an unknown key and
+    YAML outside the reader's subset raise."""
     flagship = load_config(FLAGSHIP_META)
     assert flagship == load_config(FLAGSHIP_META.parent)
     assert flagship.batch_size == 128 and flagship.npe.n_params == 15
@@ -154,8 +154,12 @@ def test_load_config(tmp_path):
     p.write_text(json.dumps({"npe": {"flow_binz": 8}}))
     with pytest.raises(KeyError, match="flow_binz"):
         load_config(p)
-    with pytest.raises(ValueError, match="PyYAML"):
-        load_config(tmp_path / "cfg.yaml")
+    y = tmp_path / "cfg.yaml"
+    y.write_text("lr: 1.0e-4  # a float: it has a dot\nnpe:\n  flow_bins: 8\n")
+    assert load_config(y) == over
+    y.write_text("npe: &a\n  flow_bins: 8\n")
+    with pytest.raises(ValueError, match="cfg.yaml:1"):
+        load_config(y)
 
 
 def test_train_npe_tool_on_the_cpu(tmp_path):
