@@ -3,7 +3,9 @@
 decompose overlapping signals with the 15-D flagship release, serve,
 validate and train the long-BNS models, train from a YAML config, export
 a release the JAX package reads and anchor it against a nested sampler,
-on one NVIDIA GPU through the
+train data-parallel and sequence-parallel over a process group, and
+train, validate and release the v3 long-BNS front end, on NVIDIA GPUs
+(one is enough) through the
 hand-written CUDA RQS kernels (csrc/rqs.cu: rqs_tile, a
 TMA bulk-copy ring of row tiles, one thread per spline, the conditioner's
 derivative bias added in the kernel; rqs_grad, its backward, K lanes a
@@ -211,6 +213,37 @@ Phases (any failure exits non-zero and prints no result line):
       binomial σ of its difference from reports/priority_fusion_bound.json
       (or ±0.07, the wider; the report's σ dominates), the defaults run
       printed against ±0.07. Every output goes to a temporary directory.
+  (y) data and sequence parallelism, and the rest of long-BNS. (y1) an
+      NCCL group of min(cards, 4) ranks, one a card (this process at world
+      1), and make_mesh's ('data', 'model') grid. (y2) the flagship's
+      make_train_step(mesh=) at batch 128 from the release, 2 steps: at
+      world 1 the loss, every gradient leaf and every parameter bit-equal
+      to the same steps without a group (above world 1, float32, within
+      (m)'s card-against-CPU bars), 10 + 10 launches a step a rank, no
+      plain spline, 10 more steps timed beside the unsharded step;
+      fit(mesh=) 1 epoch x 5 steps and a resumed epoch: one history.json,
+      one checkpoint set. (y3) make_batched_decompose(mesh=) on (s)'s
+      events and base draws: bit-equal at world 1, 30 launches at
+      8192/world rows a rank. (y4) long_bns_v4 and long_bns_v4_mesh_ft
+      through make_sharded_encoder / make_sharded_nll_v4 on a ('data' 1,
+      'model' world) mesh, 64 events: bit-equal to the unsharded port at world 1, 6 + 6
+      launches; tools/train_long_bns.py --mesh <world> at batch 64 for 20
+      steps: a falling NLL, the launches counted. (y5) v3 at JAX's
+      defaults: the grid's n_tok and L, the simulator card against CPU on
+      the same draws (coherent channels within 2e-2 of the signal's largest
+      token, energy within 1e-3 of the largest plus 1e-3, features
+      exact), tools/train_long_bns.py --tokens v3 for 100 steps (K = 8, as
+      JAX's script builds it), tools/validate_long_bns.py on it at 100 x
+      100 (the chirp branch, 18 launches a chunk), tools/release_long_bns.py
+      and the release reloaded bit-equal, rqs_tile<8> at v3's 16 and 5000
+      rows bit-equal to the plain spline and timed, rqs_grad<8> at 16 rows
+      against the plain VJP and timed. (y6) tools/dryrun_multichip.py at n
+      = world. (y7) where the machine shows one card: (y2)'s steps
+      (float32) and (y4)'s losses (float32 conditioners) at world 2 as two
+      gloo processes on that card with CUDA tensors, within (m)'s and
+      (w4)'s card-against-CPU bars; (y2)'s fit(mesh=) and (y4)'s
+      train_long_bns --mesh 2 there, held as at world 1 (one run written,
+      the same history on both ranks, the launches).
   (e) the kernel table and the device as JSON lines; the last line is
       {"ok": true, "device": {...}}.
 Every time printed names the card and its power limit.
@@ -3675,9 +3708,9 @@ def phase_train_yaml(torch, plain, rqs_cuda, yaml_cfg, card, bank_dir, tmp):
     per_step = []
     orig = trainer.train_step
 
-    def counted(state, batch):
+    def counted(state, batch, group=None):
         f0, g0 = rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches
-        out = orig(state, batch)
+        out = orig(state, batch, group)
         per_step.append((rqs_cuda.KERNEL.launches - f0,
                          rqs_cuda.GRAD_KERNEL.launches - g0))
         return out
@@ -4076,6 +4109,702 @@ def phase_fusion(card, tmp):
             "wall_long": walls[FUSION_BATCHES]}
 
 
+
+# ── (y) data and sequence parallelism, and the rest of long-BNS ──────────
+# The ranks: one a card, at most Y_MAX_WORLD, NCCL; at world 1 the rank is
+# this process (a group of one), above it processes spawned per card. The
+# sharded paths at world 1 are held bit-equal to the same calls without a
+# group. Above world 1, and in (y7)'s two gloo processes on one card, they
+# run the float32 variant of each model (where "data" splits a batch, each
+# rank rounds its share of a bfloat16 conditioner's weight gradient before
+# the sum) and are held to the bars (m) and (w4) hold float32 computations
+# of one step on other kernels to (the card against the CPU): the loss
+# within TRAIN_LOSS_TOL of the larger of 1 and |loss|, each gradient and
+# parameter leaf within TRAIN_TOL of its largest entry after TRAIN_GRAD_ABS
+# of the largest entry of any leaf. A rank's smaller batch takes other
+# float32 kernels: on the CPU the flagship encoder's context moves by 8e-7
+# of its largest entry between 2 and 4 rows, and the flow carries that to
+# 6e-5 of the loss and 1.4e-4 of a conditioner's gradient leaf, past the
+# CPU tests' bars for their small models (tests/test_torch_dist_*.py).
+Y_MAX_WORLD = 4
+Y_STEPS, Y_TIMED_STEPS, Y_FIT_STEPS = 2, 10, 5
+Y_LB_BATCH, Y_LB_STEPS, Y_LB_EVAL, Y_LB_CAL = 64, 20, 10, 64
+Y_V3_STEPS, Y_V3_EVAL, Y_V3_BATCH, Y_V3_CAL = 100, 50, 16, 64
+Y_V3_VAL = (100, 100, 50)              # validation: events, draws, chunk
+Y_V3_SIM = 4                           # events card against CPU
+Y_V3_K = 8           # JAX's LongBNSNPE default: v3 ignores --flow-bins
+Y_V3_ROWS = (Y_V3_BATCH, Y_V3_VAL[2] * Y_V3_VAL[1])
+Y7_WORLD = 2
+Y_PARTS = ("steps", "fit", "decompose", "lb", "lb_train")
+Y7_PARTS = ("steps_f32", "fit", "lb_f32", "lb_train")
+Y_LB_RELEASES = (LB_RELEASE, "model_release/long_bns_v4_mesh_ft")
+
+
+def _f32_npe(cfg):
+    """cfg with the flagship's flow and encoder matmuls in float32."""
+    return dataclasses.replace(cfg, npe=dataclasses.replace(
+        cfg.npe, flow_dtype="float32", encoder_dtype="float32"))
+
+
+def _y_state(torch, cfg, dev):
+    """A TrainState of cfg on `dev` holding the release's weights."""
+    from posteriflow_torch.train.checkpoints import load_release
+    from posteriflow_torch.train.loop import _merge_params
+    from posteriflow_torch.train.trainer import init_state
+    state = init_state(cfg, generator=torch.Generator().manual_seed(0),
+                       device=dev)
+    merged, kept, total = _merge_params(state.model.state_dict(),
+                                        load_release(RELEASE)[0])
+    check(kept == total, f"init-from transferred {kept}/{total} leaves")
+    state.model.load_state_dict(merged)
+    return state
+
+
+def y_flagship_steps(torch, plain, rqs_cuda, cfg, mesh, dev, timed=True):
+    """(y2) Y_STEPS steps of make_train_step(cfg, mesh=mesh) from the
+    release's weights, generators seeded 70, 71, ...: each step's NLL,
+    gradient leaves (after the clip) and parameters, its launches; then,
+    if `timed`, Y_TIMED_STEPS steps on the host clock."""
+    from posteriflow_torch.train.trainer import make_train_step
+    state = _y_state(torch, cfg, dev)
+    step = make_train_step(cfg, mesh=mesh)
+    counts, restore = _count_plain(torch, plain)
+    out = {"nll": [], "grads": [], "params": [], "launches": [],
+           "steps_per_s": None}
+    try:
+        for i in range(Y_STEPS + (Y_TIMED_STEPS if timed else 0)):
+            if i == Y_STEPS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            f0, b0 = rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches
+            m = step(state, torch.Generator(device=dev).manual_seed(70 + i))
+            out["launches"].append((rqs_cuda.KERNEL.launches - f0,
+                                    rqs_cuda.GRAD_KERNEL.launches - b0))
+            if i < Y_STEPS:
+                out["nll"].append(float(m["nll"]))
+                out["grads"].append({n: p.grad.detach().cpu() for n, p in
+                                     state.model.named_parameters()})
+                out["params"].append({n: p.detach().cpu() for n, p in
+                                      state.model.named_parameters()})
+        if timed:
+            torch.cuda.synchronize()
+            out["steps_per_s"] = Y_TIMED_STEPS / (time.perf_counter() - t0)
+    finally:
+        restore()
+    out["plain"] = dict(counts)
+    return out
+
+
+def y_fit(torch, rqs_cuda, cfg, mesh, dev, outdir):
+    """(y2) fit(mesh=) 1 epoch x Y_FIT_STEPS from the release, then
+    resumed for one more epoch: the histories and the launches."""
+    from posteriflow_torch.train.loop import fit
+    f0, b0 = rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches
+    _, hist = fit(cfg, outdir, epochs=1, steps_per_epoch=Y_FIT_STEPS,
+                  n_val_events=FIT_VAL_EVENTS, init_from=RELEASE,
+                  device=dev, mesh=mesh)
+    launches = (rqs_cuda.KERNEL.launches - f0,
+                rqs_cuda.GRAD_KERNEL.launches - b0)
+    _, hist2 = fit(cfg, outdir, epochs=1, steps_per_epoch=Y_FIT_STEPS,
+                   n_val_events=FIT_VAL_EVENTS, device=dev, mesh=mesh,
+                   resume_from=f"{outdir}/ckpt/last")
+    return {"hist": hist, "hist2": hist2, "launches": launches}
+
+
+def y_decompose(torch, plain, rqs_cuda, model, train_cfg, sim_cfg, mesh,
+                dev):
+    """(y3) make_batched_decompose(mesh=) on (s)'s events and base draws
+    (a generator seeded OVERLAP_SEED simulates them, then draws the
+    stages' z): the outputs, the launches and their row counts."""
+    from posteriflow_torch.core.pod import make_batched_decompose
+    from posteriflow_torch.physics.simulator import simulate_batch
+    gen = torch.Generator(device=dev).manual_seed(OVERLAP_SEED)
+    ev = simulate_batch(POD_EVENTS, sim_cfg, device=dev, generator=gen)
+    decompose = make_batched_decompose(
+        train_cfg, n_samples=POD_SAMPLES, max_stages=POD_STAGES,
+        n_template_draws=POD_TEMPLATES, mesh=mesh)
+    rows = []
+    launch = rqs_cuda.KERNEL.launch
+
+    def recording(x, *a, **k):
+        rows.append(int(x.shape[0]))
+        return launch(x, *a, **k)
+    counts, restore = _count_plain(torch, plain)
+    rqs_cuda.KERNEL.launch = recording
+    try:
+        out = decompose(model, ev.strain, ev.asd_bands, generator=gen)
+        torch.cuda.synchronize()
+    finally:
+        rqs_cuda.KERNEL.launch = launch
+        restore()
+    return {"out": {k: v.cpu() for k, v in out.items()}, "rows": rows,
+            "plain": dict(counts)}
+
+
+def _y_lb_batch(torch, grid, dev):
+    from posteriflow_torch.models import long_bns as lb
+    return lb.simulate_long_bns_batch_v4(
+        Y_LB_BATCH, grid, generator=torch.Generator(device=dev).manual_seed(
+            31), device=dev)
+
+
+def y_lb_loss(torch, plain, rqs_cuda, path, mesh, dev, f32=False):
+    """(y4) the release at `path` on a Y_LB_BATCH-event v4 batch: its
+    context and loss through make_sharded_encoder / make_sharded_nll_v4 on
+    `mesh` (the model's own with None), the gradients summed over every
+    rank, the launches."""
+    from posteriflow_torch.models import long_bns as lb
+    from posteriflow_torch.parallel.mesh import all_reduce_grads
+    from posteriflow_torch.train.trainer import backward
+    model, cal, grid = _lb_release(torch, path, dev)
+    if f32:
+        _f32_conditioners(torch, model)
+    tokens, theta, trig = _y_lb_batch(torch, grid, dev)
+    counts, restore = _count_plain(torch, plain)
+    f0, b0 = rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches
+    try:
+        if mesh is None:
+            with torch.no_grad():
+                ctx = model.encoder(tokens)
+            loss = model(tokens, theta, trig)
+        else:
+            _, apply_fn, _ = lb.make_sharded_encoder(
+                mesh, tokens.shape[1], tokens.shape[2], cal["enc"])
+            with torch.no_grad():
+                ctx = apply_fn(model.encoder, tokens)
+            loss = lb.make_sharded_nll_v4(mesh, tokens.shape[1], model)(
+                model, tokens, theta, trig)
+        backward(loss)
+        if mesh is not None:
+            all_reduce_grads(list(model.parameters()), None)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    return {"ctx": ctx.cpu(), "loss": float(loss.detach()),
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+            "launches": (rqs_cuda.KERNEL.launches - f0,
+                         rqs_cuda.GRAD_KERNEL.launches - b0),
+            "plain": dict(counts)}
+
+
+def y_lb_train(torch, plain, rqs_cuda, world, dev, outdir):
+    """(y4) tools/train_long_bns.py --mesh world at the release's config
+    (batch 64, the stored grid) for Y_LB_STEPS steps, on this rank."""
+    from posteriflow_torch.tools import train_long_bns as tool
+    counts, restore = _count_plain(torch, plain)
+    f0, b0 = rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches
+    t0 = time.perf_counter()
+    try:
+        hist, cal, _ = tool.run_training(
+            ["--outdir", outdir, "--steps", str(Y_LB_STEPS), "--batch",
+             str(Y_LB_BATCH), "--eval-every", str(Y_LB_EVAL),
+             "--cal-events", str(Y_LB_CAL), "--cal-post", "64",
+             "--mesh", str(world), "--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    return {"hist": hist, "cal": cal, "seconds": time.perf_counter() - t0,
+            "launches": (rqs_cuda.KERNEL.launches - f0,
+                         rqs_cuda.GRAD_KERNEL.launches - b0),
+            "plain": dict(counts)}
+
+
+def y_rank_work(torch, plain, rqs_cuda, world, dev, cfg, train_cfg,
+                sim_cfg, tmp, parts, model=None):
+    """The parts of (y2)-(y4) named in `parts`, run as one rank: the
+    flagship and the decompose on a ('data' world, 'model' 1) mesh, the
+    long-BNS losses on ('data' 1, 'model' world). `model` is the served
+    flagship for the decompose (the release loaded here when None)."""
+    from posteriflow_torch.inference.pipeline import load_model
+    from posteriflow_torch.parallel.mesh import make_mesh
+    mesh, seq_mesh = make_mesh(), make_mesh(model_parallel=world)
+    out = {"mesh": tuple(mesh.shape), "seq_mesh": tuple(seq_mesh.shape)}
+    if "steps" in parts:
+        out["steps"] = y_flagship_steps(torch, plain, rqs_cuda, cfg, mesh,
+                                        dev)
+    if "steps_f32" in parts:
+        out["steps_f32"] = y_flagship_steps(torch, plain, rqs_cuda,
+                                            _f32_npe(cfg), mesh, dev, False)
+    if "fit" in parts:
+        out["fit"] = y_fit(torch, rqs_cuda, cfg, mesh, dev, f"{tmp}/fit")
+    if "decompose" in parts:
+        if model is None:
+            model = load_model(RELEASE, device=dev).model
+        out["decompose"] = y_decompose(torch, plain, rqs_cuda, model,
+                                       train_cfg, sim_cfg, mesh, dev)
+    for key, f32 in (("lb", False), ("lb_f32", True)):
+        if key in parts:
+            out[key] = {p: y_lb_loss(torch, plain, rqs_cuda, p, seq_mesh,
+                                     dev, f32=f32) for p in Y_LB_RELEASES}
+    if "lb_train" in parts:
+        out["lb_train"] = y_lb_train(torch, plain, rqs_cuda, world, dev,
+                                     f"{tmp}/lb")
+    return out
+
+
+def _y_child(rank, world, cfg, train_cfg, sim_cfg, tmp, parts):
+    """A rank spawned for (y) (above world 1, and (y7)) in a group that
+    parallel/mesh.run_ranks made: runs its parts of (y2)-(y4) with the
+    files they write under tmp/shared, and saves its results to
+    tmp/rank<r>.pt."""
+    import torch
+
+    from posteriflow_torch.ops import rqs as plain
+    from posteriflow_torch.ops import rqs_cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    rqs_cuda.KERNEL.load()
+    out = y_rank_work(torch, plain, rqs_cuda, world, dev, cfg, train_cfg,
+                      sim_cfg, f"{tmp}/shared", parts)
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+
+
+def _y_spawn(torch, world, backend, cfg, train_cfg, sim_cfg, tmp, parts):
+    """Run _y_child on `world` new processes (parallel/mesh.run_ranks,
+    `backend` on the card(s)); their results by rank."""
+    from posteriflow_torch.parallel.mesh import run_ranks
+    os.makedirs(f"{tmp}/shared", exist_ok=True)
+    check(run_ranks(_y_child, world, DEVICE, (world, cfg, train_cfg, sim_cfg,
+                                              tmp, parts),
+                    backend=backend, tmpdir=tmp),
+          "(y) this process is a rank already: no ranks were spawned")
+    return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _y_bitequal(got: dict, ref: dict) -> bool:
+    import torch
+    return set(got) == set(ref) and all(torch.equal(got[n], ref[n])
+                                        for n in ref)
+
+
+def _y_hold_steps(got, ref, label, exact):
+    """(y2) a rank's steps against the unsharded ones."""
+    for i in range(Y_STEPS):
+        if exact:
+            ok = (got["nll"][i] == ref["nll"][i]
+                  and _y_bitequal(got["grads"][i], ref["grads"][i])
+                  and _y_bitequal(got["params"][i], ref["params"][i]))
+            check(ok, f"{label} step {i}: not bit-equal to the unsharded "
+                      f"step ({got['nll'][i]} vs {ref['nll'][i]})")
+        else:
+            d = abs(got["nll"][i] - ref["nll"][i]) / max(1.0,
+                                                         abs(ref["nll"][i]))
+            g, gn, _ = _leaf_errs(got["grads"][i], ref["grads"][i])
+            p, pn, _ = _leaf_errs(got["params"][i], ref["params"][i])
+            print(f"{label} step {i}: NLL {got['nll'][i]:.6f} against "
+                  f"{ref['nll'][i]:.6f} ({d:.2e}, tol {TRAIN_LOSS_TOL:g}), "
+                  f"worst gradient leaf {g:.2e} ({gn}), parameter leaf "
+                  f"{p:.2e} ({pn}), tol {TRAIN_TOL:g}")
+            check(d <= TRAIN_LOSS_TOL and g <= TRAIN_TOL and p <= TRAIN_TOL,
+                  f"{label} step {i}: {d}, {g}, {p}")
+    check(got["plain"] == {"forward": 0, "inverse": 0},
+          f"{label}: the plain spline ran: {got['plain']}")
+
+
+def _y_hold_lb(got, ref, label, exact):
+    """(y4) a rank's sharded long-BNS loss against the unsharded one."""
+    if exact:
+        ok = (got["loss"] == ref["loss"]
+              and _y_bitequal({"ctx": got["ctx"], **got["grads"]},
+                              {"ctx": ref["ctx"], **ref["grads"]}))
+        check(ok, f"{label}: not bit-equal to the unsharded loss "
+                  f"({got['loss']} vs {ref['loss']})")
+        return
+    d = abs(got["loss"] - ref["loss"]) / max(1.0, abs(ref["loss"]))
+    c = float((got["ctx"] - ref["ctx"]).abs().max()
+              / ref["ctx"].abs().max())
+    g, gn, _ = _leaf_errs(got["grads"], ref["grads"])
+    print(f"{label}: loss {got['loss']:.6f} against {ref['loss']:.6f} "
+          f"({d:.2e}, tol {TRAIN_LOSS_TOL:g}), context {c:.2e} of its "
+          f"largest entry (tol 1e-5), worst gradient leaf {g:.2e} ({gn}, tol "
+          f"{TRAIN_TOL:g})")
+    check(d <= TRAIN_LOSS_TOL and c <= 1e-5 and g <= TRAIN_TOL,
+          f"{label}: {d}, {c}, {g}")
+
+
+def _y_hold_fit(ranks, fit_dir, label, layers, card):
+    """(y2) fit(mesh=) on every rank: one history.json and one checkpoint
+    set in fit_dir, the resumed epoch after the first, the same histories
+    on every rank, Y_FIT_STEPS backward launches a layer a rank."""
+    with open(f"{fit_dir}/history.json") as f:
+        saved = json.load(f)
+    ckpts = sorted(os.listdir(f"{fit_dir}/ckpt"))
+    fitted = ranks[0]["fit"]
+    print(f"{label} fit(mesh=) 1 epoch x {Y_FIT_STEPS} steps, then resumed "
+          f"1, {len(ranks)} rank(s) [{card}]: epochs "
+          f"{[h['epoch'] for h in saved]}, lr_step "
+          f"{[h['lr_step'] for h in saved]}, val_nll "
+          f"{[round(h['val_nll'], 4) for h in saved]}; checkpoints {ckpts}; "
+          f"launches in the first epoch a rank "
+          f"{[got['fit']['launches'] for got in ranks]}")
+    check([h["epoch"] for h in saved] == [1, 2]
+          and saved[-1]["lr_step"] == 2 * Y_FIT_STEPS
+          and ckpts == ["best", "last"],
+          f"{label} fit: {[(h['epoch'], h['lr_step']) for h in saved]} "
+          f"{ckpts}")
+    check(all(math.isfinite(h["val_nll"]) for h in saved),
+          f"{label} fit NLL")
+    for r, got in enumerate(ranks):
+        val = [h["val_nll"] for h in got["fit"]["hist2"]]
+        check(val == [h["val_nll"] for h in saved],
+              f"{label} rank {r}'s history {val} is not the one written")
+        check(got["fit"]["launches"] == fitted["launches"]
+              and fitted["launches"][1] == Y_FIT_STEPS * layers,
+              f"{label} rank {r} fit launches {got['fit']['launches']}")
+    return fitted["launches"]
+
+
+def _y_hold_lb_train(ranks, world, label, card):
+    """(y4) train_long_bns --mesh world on every rank: a finite, falling
+    NLL, 6 + 6 launches a step (plus evaluation and calibration), no
+    plain spline, the mesh in calibration.json."""
+    n_cal = max(1, Y_LB_CAL // Y_LB_BATCH)
+    for r, got in enumerate(ranks):
+        lt = got["lb_train"]
+        hist = lt["hist"]
+        want = (6 * Y_LB_STEPS + 12 * len(hist) + 6 * n_cal, 6 * Y_LB_STEPS)
+        check(lt["launches"] == want and lt["plain"] == {"forward": 0,
+                                                         "inverse": 0},
+              f"{label} rank {r} train launches {lt['launches']} (expected "
+              f"{want}), plain {lt['plain']}")
+        check(all(math.isfinite(h["train_nll"])
+                  and math.isfinite(h["val_nll"]) for h in hist)
+              and hist[-1]["val_nll"] < hist[0]["val_nll"],
+              f"{label} rank {r}: the NLL did not fall: {hist}")
+        check(lt["cal"]["config"]["mesh"] == world,
+              f"{label} calibration mesh {lt['cal']['config']['mesh']}")
+    lt = ranks[0]["lb_train"]
+    print(f"{label} train_long_bns --mesh {world} at batch {Y_LB_BATCH}, "
+          f"{Y_LB_STEPS} steps, in {lt['seconds']:.1f} s [{card}]: "
+          + ", ".join(f"step {h['step']} train {h['train_nll']:.3f} val "
+                      f"{h['val_nll']:.3f}" for h in lt["hist"])
+          + f"; launches a rank {[g['lb_train']['launches'] for g in ranks]}"
+          f"; calibration mesh {lt['cal']['config']['mesh']}")
+    return lt
+
+
+def phase_mesh(torch, plain, rqs_cuda, engine, train_cfg, sim_cfg, card,
+               tmp):
+    """(y1)-(y4), (y6), (y7): the process grid, the flagship's
+    data-parallel step and fit, the sharded batched decompose, the
+    sequence-parallel long-BNS losses and training, dryrun_multichip."""
+    import torch.distributed as dist
+
+    from posteriflow_torch.parallel.mesh import init_distributed, make_mesh
+    from posteriflow_torch.tools import dryrun_multichip
+    world = min(torch.cuda.device_count(), Y_MAX_WORLD)
+    cfg = train_cfg
+    t0 = time.perf_counter()
+    # the unsharded references, in this process
+    ref = {"steps": y_flagship_steps(torch, plain, rqs_cuda, cfg, None,
+                                     DEVICE),
+           "steps_f32": y_flagship_steps(torch, plain, rqs_cuda,
+                                         _f32_npe(cfg), None, DEVICE, False),
+           "decompose": y_decompose(torch, plain, rqs_cuda, engine.model,
+                                    train_cfg, sim_cfg, None, DEVICE),
+           "lb": {p: y_lb_loss(torch, plain, rqs_cuda, p, None, DEVICE)
+                  for p in Y_LB_RELEASES},
+           "lb_f32": {p: y_lb_loss(torch, plain, rqs_cuda, p, None, DEVICE,
+                                   f32=True) for p in Y_LB_RELEASES}}
+    if world == 1:
+        t1 = time.perf_counter()
+        init_distributed(f"file://{tmp}/rendezvous", 1, 0, device=DEVICE)
+        mesh = make_mesh(world)
+        backend = dist.get_backend()
+        print(f"(y1) process group: {backend}, world {world} (one a card of "
+              f"{torch.cuda.device_count()}), this process as rank 0; mesh "
+              f"{mesh.mesh_dim_names} of shape {tuple(mesh.shape)}, up in "
+              f"{time.perf_counter() - t1:.2f} s [{card}]")
+        check(backend == "nccl", f"(y1) backend {backend}")
+        try:
+            ranks = [y_rank_work(torch, plain, rqs_cuda, world, DEVICE, cfg,
+                                 train_cfg, sim_cfg, tmp, Y_PARTS,
+                                 engine.model)]
+        finally:
+            dist.destroy_process_group()
+        shared = tmp
+    else:
+        print(f"(y1) process group: nccl, world {world} of "
+              f"{torch.cuda.device_count()} cards, one process a card "
+              f"[{card}]")
+        ranks = _y_spawn(torch, world, "nccl", cfg, train_cfg, sim_cfg, tmp,
+                         Y_PARTS + ("steps_f32",))
+        shared = f"{tmp}/shared"
+    exact = world == 1
+    layers = cfg.npe.flow_layers
+    for r, got in enumerate(ranks):
+        _y_hold_steps(got["steps"], ref["steps"], f"(y2) rank {r}", exact)
+        if not exact:
+            _y_hold_steps(got["steps_f32"], ref["steps_f32"],
+                          f"(y2) rank {r}, float32", False)
+        check(set(got["steps"]["launches"]) == {(layers, layers)},
+              f"(y2) rank {r} launches a step {got['steps']['launches']}")
+    st = ranks[0]["steps"]
+    print(f"(y2) make_train_step(mesh=) on ('data', 'model') "
+          f"{ranks[0]['mesh']} at batch {cfg.batch_size} "
+          f"({cfg.batch_size // world} rows a rank), the release's weights, "
+          f"{Y_STEPS} steps [{card}]: NLL {st['nll']}, "
+          + ("bit-equal to the unsharded steps (loss, every gradient leaf "
+             "after the clip, every parameter)" if exact else
+             "within (m)'s float32 bars")
+          + f"; launches a step a rank {sorted(set(st['launches']))}, plain "
+          f"spline {st['plain']}; {st['steps_per_s']:.2f} steps/s over "
+          f"{Y_TIMED_STEPS} steps (unsharded in this process "
+          f"{ref['steps']['steps_per_s']:.2f})")
+    fit_launches = _y_hold_fit(ranks, f"{shared}/fit", "(y2)", layers, card)
+
+    rows = POD_EVENTS * POD_SAMPLES // world
+    for r, got in enumerate(ranks):
+        d, dr = got["decompose"], ref["decompose"]
+        check(d["rows"] == [rows] * POD_STAGES * layers
+              and d["plain"] == {"forward": 0, "inverse": 0},
+              f"(y3) rank {r}: launches at rows {d['rows']}, plain "
+              f"{d['plain']}")
+        if exact:
+            check(_y_bitequal(d["out"], dr["out"]),
+                  "(y3) the sharded decompose differs from (s)'s call")
+        else:
+            check(all(torch.equal(d["out"][k], dr["out"][k])
+                      for k in ("accepted", "n_extracted")),
+                  "(y3) accepted flags differ")
+    print(f"(y3) make_batched_decompose(mesh=) on ('data', 'model') "
+          f"{ranks[0]['mesh']}, (s)'s {POD_EVENTS} events and base draws "
+          f"[{card}]: n_extracted "
+          f"{ranks[0]['decompose']['out']['n_extracted'].tolist()}, "
+          f"{len(ranks[0]['decompose']['rows'])} rqs_tile launches at "
+          f"{rows} rows a rank; "
+          + ("bit-equal to the unsharded call" if exact
+             else "flags equal to the unsharded call"))
+
+    for p in Y_LB_RELEASES:
+        for r, got in enumerate(ranks):
+            check(got["seq_mesh"] == (1, world),
+                  f"(y4) rank {r}: the long-BNS mesh is {got['seq_mesh']}")
+            _y_hold_lb(got["lb"][p], ref["lb"][p], f"(y4) {p} rank {r}",
+                       exact)
+            check(got["lb"][p]["launches"] == (6, 6)
+                  and got["lb"][p]["plain"] == {"forward": 0, "inverse": 0},
+                  f"(y4) {p} rank {r}: launches {got['lb'][p]['launches']}")
+        print(f"(y4) {p} through make_sharded_nll_v4 / make_sharded_encoder "
+              f"on ('data', 'model') {ranks[0]['seq_mesh']}, {Y_LB_BATCH} "
+              f"events [{card}]: NLL {ranks[0]['lb'][p]['loss']:.6f}, "
+              + ("bit-equal to the unsharded port (context, loss, every "
+                 "gradient leaf)" if exact else "within (w4)'s float32 bars")
+              + f"; launches {ranks[0]['lb'][p]['launches']}")
+    lt = _y_hold_lb_train(ranks, world, "(y4)", card)
+
+    out = f"{tmp}/dryrun.json"
+    t1 = time.perf_counter()
+    dryrun_multichip.dryrun_multichip(world, "cuda", out=out)
+    with open(out) as f:
+        dry = json.load(f)
+    print(f"(y6) dryrun_multichip({world}) on the card(s) in "
+          f"{time.perf_counter() - t1:.1f} s [{card}]: nll "
+          f"{dry['nll']:.4f}, grad_norm {dry['grad_norm']:.3f}")
+    check(math.isfinite(dry["nll"]), f"(y6) {dry}")
+
+    y7 = None
+    if torch.cuda.device_count() == 1:
+        t1 = time.perf_counter()
+        got = _y_spawn(torch, Y7_WORLD, "gloo", cfg, train_cfg, sim_cfg,
+                       f"{tmp}/y7", Y7_PARTS)
+        for r, g in enumerate(got):
+            check(g["mesh"] == (Y7_WORLD, 1)
+                  and g["seq_mesh"] == (1, Y7_WORLD),
+                  f"(y7) rank {r}: meshes {g['mesh']}, {g['seq_mesh']}")
+            _y_hold_steps(g["steps_f32"], ref["steps_f32"],
+                          f"(y7) rank {r} flagship, float32", False)
+            for p in Y_LB_RELEASES:
+                _y_hold_lb(g["lb_f32"][p], ref["lb_f32"][p],
+                           f"(y7) rank {r} {p}, float32 conditioners", False)
+        check(got[0]["fit"]["launches"] == fit_launches,
+              f"(y7) fit launches {got[0]['fit']['launches']}, at world 1 "
+              f"{fit_launches}")
+        _y_hold_fit(got, f"{tmp}/y7/shared/fit", "(y7)", layers, card)
+        y7_lt = _y_hold_lb_train(got, Y7_WORLD, "(y7)", card)
+        with open(f"{tmp}/y7/shared/lb/history.json") as f:
+            check(json.load(f) == y7_lt["hist"],
+                  "(y7) train_long_bns: history.json is not rank 0's")
+        y7 = time.perf_counter() - t1
+        print(f"(y7) (y2) and (y4) at world {Y7_WORLD}: two gloo processes "
+              f"on the one card, CUDA tensors, in {y7:.1f} s [{card}]: the "
+              f"steps and losses within (m)'s and (w4)'s float32 bars; fit "
+              f"and train_long_bns --mesh {Y7_WORLD} wrote one run each; "
+              f"first val NLL {y7_lt['hist'][0]['val_nll']:.6f} against "
+              f"{lt['hist'][0]['val_nll']:.6f} at world 1")
+    return {"world": world, "ranks": ranks, "ref": ref, "dry": dry,
+            "seconds": time.perf_counter() - t0, "y7": y7}
+
+
+def phase_v3(torch, plain, rqs_cuda, card, tmp):
+    """(y5) the v3 chirp front end at JAX's defaults: the grid, the
+    simulator card against CPU, tools/train_long_bns.py --tokens v3,
+    tools/validate_long_bns.py on the run, tools/release_long_bns.py and
+    the release reloaded, rqs_tile<8> at v3's row counts bit-equal to the
+    plain spline and timed, rqs_grad<8> at its training rows."""
+    from posteriflow_torch.models import long_bns as lb
+    from posteriflow_torch.tools import release_long_bns
+    from posteriflow_torch.tools import train_long_bns as tool
+    from posteriflow_torch.tools import validate_long_bns
+    from posteriflow_torch.train.checkpoints import load_long_bns
+    t0 = time.perf_counter()
+    grid = lb.build_chirp_token_grid()
+    grid_s = time.perf_counter() - t0
+    draws = lb.draw_long_bns(Y_V3_SIM, grid["cut"], None,
+                             torch.Generator().manual_seed(41), "cpu")
+    cpu_tok, _ = lb.simulate_long_bns_v3_from_draws(draws, grid)
+    card_tok, _ = lb.simulate_long_bns_v3_from_draws(
+        lb.LongBNSDraws(draws.theta.to(DEVICE), draws.noise.to(DEVICE),
+                        None), grid)
+    sig, _ = lb.simulate_long_bns_v3_from_draws(
+        lb.LongBNSDraws(draws.theta, torch.zeros_like(draws.noise), None),
+        grid)
+    card_tok = card_tok.cpu()
+    coh = float((card_tok[..., :6] - cpu_tok[..., :6]).abs().max())
+    coh_bar = 2e-2 * float(sig[..., :6].abs().max())
+    en = float((card_tok[..., 6:9] - cpu_tok[..., 6:9]).abs().max())
+    en_bar = 1e-3 * float(cpu_tok[..., 6:9].abs().max()) + 1e-3
+    feat = torch.equal(card_tok[..., 9:], cpu_tok[..., 9:])
+    print(f"(y5) v3 grid at JAX's defaults (64 s, f_hi 512, alpha 2): n_tok "
+          f"{grid['n_tok']}, L {grid['L']}, built in {grid_s:.2f} s on the "
+          f"host; {Y_V3_SIM} events card against CPU on the same draws "
+          f"[{card}]: coherent channels {coh:.3e} (bar {coh_bar:.3e}), "
+          f"energy {en:.3e} (bar {en_bar:.3e}), features exact {feat}")
+    check(coh <= coh_bar and en <= en_bar and feat,
+          f"(y5) simulator card against CPU: {coh}, {en}")
+
+    run = f"{tmp}/v3"
+    counts, restore = _count_plain(torch, plain)
+    rqs_cuda.KERNEL.launches = rqs_cuda.GRAD_KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    try:
+        hist, cal, _ = tool.run_training(
+            ["--tokens", "v3", "--outdir", run, "--steps", str(Y_V3_STEPS),
+             "--batch", str(Y_V3_BATCH), "--eval-every", str(Y_V3_EVAL),
+             "--flow-bins", "12", "--cal-events", str(Y_V3_CAL),
+             "--device", DEVICE])
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    train_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd, bwd = rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches
+    n_cal = max(1, Y_V3_CAL // Y_V3_BATCH)
+    want = (6 * Y_V3_STEPS + 12 * len(hist) + 6 * n_cal, 6 * Y_V3_STEPS)
+    print(f"(y5) train_long_bns --tokens v3 --flow-bins 12 (K = "
+          f"{Y_V3_K}: JAX's script builds v3's LongBNSNPE at its default "
+          f"bins), batch {Y_V3_BATCH}, {Y_V3_STEPS} steps in "
+          f"{train_s:.1f} s [{card}]: "
+          + ", ".join(f"step {h['step']} train {h['train_nll']:.3f} val "
+                      f"{h['val_nll']:.3f} shuffle Δ {h['shuffle_delta']}"
+                      for h in hist)
+          + f"; {cal['config']['n_params']} parameters; launches {(fwd, bwd)}"
+          f" (expected {want}); plain spline {dict(counts)}; peak memory "
+          f"{peak:.2f} GiB")
+    check((fwd, bwd) == want and counts == {"forward": 0, "inverse": 0},
+          f"(y5) launches {(fwd, bwd)}, plain {counts}")
+    check(all(math.isfinite(h["train_nll"]) and math.isfinite(h["val_nll"])
+              for h in hist), "(y5) non-finite NLL")
+
+    n_ev, n_post, chunk = Y_V3_VAL
+    rqs_cuda.KERNEL.launches = 0
+    t1 = time.perf_counter()
+    code, report, _ = validate_long_bns.run(
+        ["--model", run, "--n-events", str(n_ev), "--n-post", str(n_post),
+         "--chunk", str(chunk), "--device", DEVICE, "--out",
+         f"{tmp}/v3_val"])
+    val_s = time.perf_counter() - t1
+    val_launches = rqs_cuda.KERNEL.launches
+    print(f"(y5) validate_long_bns on the v3 run at {n_ev} x {n_post} "
+          f"[{card}]: exit {code} in {val_s:.2f} s, gates "
+          + ", ".join(f"{c['gate']} {c['value']:.3f}"
+                      for c in report["checks"])
+          + f"; rqs_tile launches {val_launches}")
+    check([c["gate"] for c in report["checks"]]
+          == list(validate_long_bns.GATES)
+          and val_launches == 18 * (n_ev // chunk),
+          f"(y5) validation: {report['checks']} {val_launches}")
+
+    code = release_long_bns.main(["--run", run, "--out", f"{tmp}/v3_rel",
+                                  "--report", f"{tmp}/none"])
+    model, _, _ = load_long_bns(run, device="cpu")
+    again, _, _ = load_long_bns(f"{tmp}/v3_rel", device="cpu")
+    same = _y_bitequal(again.state_dict(), model.state_dict())
+    print(f"(y5) release_long_bns on the v3 run: exit {code}; its "
+          f"params.msgpack reloaded bit-equal to the run: {same}")
+    check(code == 0 and same, "(y5) release")
+
+    times = {}
+    for n in Y_V3_ROWS:
+        x, raw, bias = spline_inputs(torch, n, seed=n + 8, k=Y_V3_K, d=LB_D)
+        for b in (None, bias):
+            for inverse in (False, True):
+                k_out, k_ld = rqs_cuda.KERNEL.launch(
+                    x, raw.reshape(n, -1), Y_V3_K, TAIL, inverse, bias=b)
+                p_fn = plain.rqs_inverse if inverse else plain.rqs_forward
+                p_out, p_ld = p_fn(x, raw if b is None else raw + b, Y_V3_K,
+                                   TAIL)
+                torch.cuda.synchronize()
+                err = max(float((k_out - p_out).abs().max()),
+                          float((k_ld - p_ld).abs().max()))
+                check(err == 0.0, f"(y5) rqs_tile<{Y_V3_K}> N={n} inverse="
+                                  f"{inverse} bias={b is not None}: {err}")
+        inverse = n != Y_V3_BATCH
+        times[n] = forward_timing(torch, plain, rqs_cuda, x, raw, bias,
+                                  inverse=inverse, k=Y_V3_K)
+        t = times[n]
+        print(f"(y5) rqs_tile<{Y_V3_K}, {'inverse' if inverse else 'forward'}"
+              f", bias> N={n} D={LB_D} [{card}]: bit-equal to the plain "
+              f"spline both ways, with and without the bias; device time a "
+              f"launch " + ("not measured" if t["ms"] is None
+                            else f"{t['ms'] * 1e3:.2f} us")
+              + f" (profiler), {t['events_ms'] * 1e3:.2f} us by CUDA events,"
+              f" plain {t['plain_ms'] * 1e3:.1f} us; bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
+              f"{rqs_bytes(n, LB_D, Y_V3_K)} B)")
+    n = Y_V3_BATCH
+    x, raw, g_out, g_ld, bias = grad_inputs(torch, plain, n, Y_V3_K, seed=12,
+                                            d=LB_D)
+    ref = plain.rqs_forward_vjp(x, raw, g_out, g_ld, Y_V3_K, TAIL, bias=bias)
+    got = rqs_cuda.GRAD_KERNEL.launch(x, raw.reshape(n, -1), g_out, g_ld,
+                                      Y_V3_K, TAIL, bias)
+    errs = [grad_err(got[0], ref[0]),
+            grad_err(got[1].reshape(ref[1].shape), ref[1])]
+    check(all(math.isfinite(e) and e <= GRAD_REL for e in errs),
+          f"(y5) rqs_grad<{Y_V3_K}>: {errs}")
+    raw2 = raw.reshape(n, -1)
+
+    def grad_fn():
+        return rqs_cuda.GRAD_KERNEL.launch(x, raw2, g_out, g_ld, Y_V3_K,
+                                           TAIL, bias)
+    nbytes, nops = (rqs_grad_bytes(n, LB_D, Y_V3_K),
+                    rqs_grad_ops(n, LB_D, Y_V3_K))
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOPS
+    g = {"ms": kernel_device_ms(torch, grad_fn, "rqs_grad"),
+         "events_ms": cuda_time_ms(grad_fn, reps=50),
+         "plain_ms": cuda_time_ms(lambda: plain.rqs_forward_vjp(
+             x, raw, g_out, g_ld, Y_V3_K, TAIL, bias=bias), reps=5),
+         "bound_ms": max(by_bytes, by_ops) * 1e3,
+         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+         "max_rel_err": max(errs),
+         "max_abs_err": max(float((got[0] - ref[0]).abs().max()),
+                            float((got[1].reshape(ref[1].shape)
+                                   - ref[1]).abs().max()))}
+    print(f"(y5) rqs_grad<{Y_V3_K}, bias> N={n} D={LB_D} [{card}]: g_x, g_raw "
+          f"{errs[0]:.2e}, {errs[1]:.2e} of the largest entry; device time "
+          + ("not measured" if g["ms"] is None else f"{g['ms'] * 1e3:.2f} us")
+          + f" (profiler), {g['events_ms'] * 1e3:.2f} us by CUDA events, "
+          f"plain VJP {g['plain_ms'] * 1e3:.1f} us; bound "
+          f"{g['bound_ms'] * 1e3:.3f} us ({g['bound_by']}: {nbytes} B)")
+    return {"grid": (grid["n_tok"], grid["L"], grid_s), "hist": hist,
+            "launches": (fwd, bwd), "val_launches": val_launches,
+            "train_s": train_s, "val_s": val_s, "peak_gib": peak,
+            "times": times, "grad": g}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4184,10 +4913,24 @@ def main() -> int:
             x_s = time.perf_counter() - t0
             print(f"(x) release-path and anchor phases done in {x_s:.1f} s "
                   f"[{card}]")
+            t0 = time.perf_counter()
+            for d in ("y", "y5"):
+                os.makedirs(f"{tmp}/{d}")
+            ym = phase_mesh(torch, plain, rqs_cuda, engine, train_cfg,
+                            sim_cfg, card, f"{tmp}/y")
+            y5 = phase_v3(torch, plain, rqs_cuda, card, f"{tmp}/y5")
+            y_s = time.perf_counter() - t0
+            print(f"(y) parallelism and v3 phases done in {y_s:.1f} s "
+                  f"[{card}]")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    y_st = ym["ranks"][0]["steps"]
+    y_fit_l = ym["ranks"][0]["fit"]["launches"]
+    y_lb_l = tuple(sum(ym["ranks"][0]["lb"][p]["launches"][j]
+                       for p in Y_LB_RELEASES) for j in (0, 1))
+    y_lbt = ym["ranks"][0]["lb_train"]
     k_ms, p_ms = bench["times"]["inverse"]
     f_ms, fp_ms = bench["times"]["forward"]
     kernels = [{
@@ -4229,7 +4972,15 @@ def main() -> int:
                              f"{X_STEPS} steps with the bank (x2)":
                                  xt["launches"][0],
                              f"one anchor, {ANCHOR_ROWS} draws and their "
-                             f"importance correction (x4)": xa["launches"]},
+                             f"importance correction (x4)": xa["launches"],
+                             f"make_train_step(mesh=) {Y_STEPS} + "
+                             f"{Y_TIMED_STEPS} steps, rank 0 of "
+                             f"{ym['world']} (y2)": sum(
+                                 f for f, _ in y_st["launches"]),
+                             f"fit(mesh=) 1 epoch x {Y_FIT_STEPS} steps, "
+                             f"rank 0 (y2)": y_fit_l[0],
+                             f"make_batched_decompose(mesh=), rank 0 (y3)":
+                                 len(ym["ranks"][0]["decompose"]["rows"])},
         "max_abs_err": max(errs["inverse"][0], errs["forward"][0]),
         "max_abs_err_logdet": max(errs["inverse"][1], errs["forward"][1]),
         "ms": k_ms, "plain_ms": p_ms,
@@ -4265,7 +5016,13 @@ def main() -> int:
                              f"steps (u)": bank["fit"]["launches"][1],
                              f"train_npe --config {X_CONFIG} 1 epoch x "
                              f"{X_STEPS} steps with the bank (x2)":
-                                 xt["launches"][1]},
+                                 xt["launches"][1],
+                             f"make_train_step(mesh=) {Y_STEPS} + "
+                             f"{Y_TIMED_STEPS} steps, rank 0 of "
+                             f"{ym['world']} (y2)": sum(
+                                 b for _, b in y_st["launches"]),
+                             f"fit(mesh=) 1 epoch x {Y_FIT_STEPS} steps, "
+                             f"rank 0 (y2)": y_fit_l[1]},
         "max_abs_err": grad["max_abs_err"],
         "max_rel_err": grad["max_rel_err"],
         "train_step_vs_plain": parity["kernels / plain on the card"],
@@ -4297,7 +5054,11 @@ def main() -> int:
                 lbv["launches"],
             f"one {LB_SERVE_EVENTS}-event request (w2)": lbs["launches"],
             f"train_long_bns {LB_TRAIN_STEPS} steps with evaluations and "
-            f"calibration (w4)": lbt["launches"][0]},
+            f"calibration (w4)": lbt["launches"][0],
+            f"make_sharded_nll_v4 on both v4 releases, rank 0 (y4)":
+                y_lb_l[0],
+            f"train_long_bns --mesh {ym['world']} {Y_LB_STEPS} steps, "
+            f"rank 0 (y4)": y_lbt["launches"][0]},
         "max_abs_err": lbk["tile_err"][LB_K],
         "ms": t_inv["ms"] if t_inv["ms"] is not None else t_inv["events_ms"],
         "ms_from": ("profiler device time, inverse at 20000 rows"
@@ -4314,7 +5075,12 @@ def main() -> int:
         "replaces": "posteriflow_tpu/models/flow.py:96",
         "launches": lbt["launches"][1],
         "launches_by_path": {f"train_long_bns {LB_TRAIN_STEPS} steps (w4)":
-                             lbt["launches"][1]},
+                             lbt["launches"][1],
+                             f"make_sharded_nll_v4 on both v4 releases, "
+                             f"rank 0 (y4)": y_lb_l[1],
+                             f"train_long_bns --mesh {ym['world']} "
+                             f"{Y_LB_STEPS} steps, rank 0 (y4)":
+                                 y_lbt["launches"][1]},
         "max_abs_err": lbk["grad"]["max_abs_err"],
         "max_rel_err": lbk["grad"]["max_rel_err"],
         "ms": (lbk["grad"]["ms"] if lbk["grad"]["ms"] is not None
@@ -4334,7 +5100,11 @@ def main() -> int:
         "launches": lb1["launches"],
         "launches_by_path": {
             f"validate_long_bns on long_bns_v1, {LB_V1_EVENTS} x "
-            f"{LB_V1_POST} (w5)": lb1["launches"]},
+            f"{LB_V1_POST} (w5)": lb1["launches"],
+            f"train_long_bns --tokens v3 {Y_V3_STEPS} steps with "
+            f"evaluations and calibration (y5)": y5["launches"][0],
+            f"validate_long_bns on the v3 run, {Y_V3_VAL[0]} x "
+            f"{Y_V3_VAL[1]} (y5)": y5["val_launches"]},
         "max_abs_err": lbk["tile_err"][LB_V1_K],
         "ms": t_v1["ms"] if t_v1["ms"] is not None else t_v1["events_ms"],
         "ms_from": (f"profiler device time, inverse at "
@@ -4343,6 +5113,27 @@ def main() -> int:
         "plain_ms": t_v1["plain_ms"],
         "bound_ms": t_v1["bound_ms"], "bound_by": t_v1["bound_by"],
         f"rows_{LB_V1_CHUNK}_forward": t_v1f,
+        f"rows_{Y_V3_ROWS[0]}_forward_v3": y5["times"][Y_V3_ROWS[0]],
+        f"rows_{Y_V3_ROWS[1]}_inverse_v3": y5["times"][Y_V3_ROWS[1]],
+        "library_ms": None,
+    }, {
+        "name": f"rqs_grad<{Y_V3_K}, bias> (the v3 model's spline "
+                f"backward, 8-lane groups)",
+        "route": "cuda",
+        "source": "posteriflow_torch/csrc/rqs.cu",
+        "replaces": "posteriflow_tpu/models/flow.py:96",
+        "launches": y5["launches"][1],
+        "launches_by_path": {
+            f"train_long_bns --tokens v3 {Y_V3_STEPS} steps (y5)":
+                y5["launches"][1]},
+        "max_abs_err": y5["grad"]["max_abs_err"],
+        "max_rel_err": y5["grad"]["max_rel_err"],
+        "ms": (y5["grad"]["ms"] if y5["grad"]["ms"] is not None
+               else y5["grad"]["events_ms"]),
+        "events_ms": y5["grad"]["events_ms"],
+        "plain_ms": y5["grad"]["plain_ms"],
+        "bound_ms": y5["grad"]["bound_ms"],
+        "bound_by": y5["grad"]["bound_by"],
         "library_ms": None,
     }]
     print(f"(e) done in {time.perf_counter() - t_start:.1f} s [{card}]; "
@@ -4372,7 +5163,11 @@ def main() -> int:
           f"(nested {xa['entry']['t_nested_s']} s, a {LIKE_ROWS}-row "
           f"likelihood call {xa['like_ms']:.3f} ms), logZ gap "
           f"{xa['entry']['logz_gap_is_minus_sampler']:+.3f}; evidence "
-          f"validation {xv['wall']:.1f} s; phase x {x_s:.1f} s")
+          f"validation {xv['wall']:.1f} s; phase x {x_s:.1f} s; "
+          f"data-parallel training at world {ym['world']} "
+          f"{y_st['steps_per_s']:.2f} steps/s; v3 training "
+          f"{y5['train_s']:.1f} s for {Y_V3_STEPS} steps (peak "
+          f"{y5['peak_gib']:.2f} GiB); phase y {y_s:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,33 +1,40 @@
 """Long-duration BNS NPE (torch): 64-s binary-neutron-star inspirals.
 
-Port of posteriflow_tpu/models/long_bns.py, on one device (the sequence-
-parallel losses wait for ROADMAP §1 item 5). Two front ends:
+Port of posteriflow_tpu/models/long_bns.py. Three front ends:
 
   - v1, `multiband_tokens` (:37): the whitened FD strain mean-pooled in
     geometric bands, 2048 tokens of 6 channels (long_bns_v1);
+  - v3, the chirp-adapted static heterodyne (:66-208): one fiducial
+    TaylorF2 phase for the whole prior, then the variable-width pools of
+    `build_chirp_token_grid`, 3 channels a detector plus 2 static
+    features;
   - v4, the trigger-conditioned heterodyne (:376-597): each detector is
     multiplied by the conjugate TaylorF2+tidal phase at the detection
     trigger's chirp mass M̂c and arrival times t̂, then pooled into the
     variable-width tokens of a static grid (`build_trigger_token_grid`),
     3 channels a detector plus 2 static features (long_bns_v4).
 
-The grid a release was trained on is data. `build_trigger_token_grid`
+The grid a v4 release was trained on is data. `build_trigger_token_grid`
 sizes its pools by a greedy segmentation over the gradient of float32
 phase differences near 1.6e4 rad, so its boundaries depend on the phase's
 last bits; the port's float32 phase is not JAX's bit for bit. A release is
 therefore served on the grid JAX built for it, stored under `grids/` and
 named by `utils/provenance.config_hash` of its `tokens` config
-(`load_stored_grid`); a config with no stored grid raises.
+(`load_stored_grid`); a trigger config with no stored grid raises. A v3
+grid's pools follow float64 chirp times alone and rebuild from its
+config.
 
 The simulators are split into draws (`draw_long_bns`: θ from the BNS
 prior, complex normal noise, the truncated-normal trigger errors) and a
 deterministic apply step, as physics/simulator.py splits its own, so that
 a test hands both packages the same draws. The encoder is JAX's
-`LongBNSEncoder` with `SeqParallelAttention` as plain attention; its
-float32 products run without TF32 (utils/precision.fp32_exact). The
-flow's spline runs the CUDA kernels of ops/rqs_cuda.py on the card.
+`LongBNSEncoder`; its float32 products run without TF32
+(utils/precision.fp32_exact). Given the mesh's "model" group it runs
+sequence-parallel (`make_sharded_encoder`, `make_sharded_nll`,
+`make_sharded_nll_v4`): keys and values gathered, the pool averaged over
+the group. The flow's spline runs the CUDA kernels of ops/rqs_cuda.py on
+the card.
 """
-
 from __future__ import annotations
 
 import json
@@ -37,11 +44,15 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from posteriflow_torch.models.encoder import sinusoidal_positions
 from posteriflow_torch.models.flow import CouplingNSF, gelu
-from posteriflow_torch.physics.constants import N_DETECTORS, SAMPLE_RATE
+from posteriflow_torch.parallel.mesh import (all_gather_seq, all_reduce_sum,
+                                             shard_rows)
+from posteriflow_torch.physics.constants import (MTSUN_SI, N_DETECTORS,
+                                                 SAMPLE_RATE)
 from posteriflow_torch.physics.detectors import OMEGA_EARTH, network_response
 from posteriflow_torch.physics.projection import GMST_REF, project_to_network
 from posteriflow_torch.physics.psd import default_network_psd
@@ -258,8 +269,13 @@ def stored_grid_path(tok_cfg: dict) -> Path:
 
 def load_stored_grid(tok_cfg: dict) -> dict:
     """The grid a release with tokens config `tok_cfg` was trained on.
-    Raises FileNotFoundError where none is stored: a rebuilt grid would
+    A "chirp" (v3) grid is rebuilt from its config, as JAX's validators
+    rebuild it: its pools do not depend on float32 values. A trigger grid
+    raises FileNotFoundError where none is stored: a rebuilt grid would
     not be the release's."""
+    if tok_cfg.get("kind") == "chirp":
+        return build_chirp_token_grid(
+            **{k: v for k, v in tok_cfg.items() if k != "kind"})
     path = stored_grid_path(tok_cfg)
     if not path.is_file():
         raise FileNotFoundError(
@@ -282,6 +298,8 @@ def _grid_tensor(grid: dict, name: str, device) -> torch.Tensor:
             a = torch.tensor(grid["freqs"][grid["i_lo"]:], dtype=torch.float32)
         elif name in ("starts", "ends"):
             a = torch.from_numpy(np.asarray(grid[name], np.int64))
+        elif name == "het":
+            a = torch.from_numpy(np.asarray(grid[name], np.complex64))
         else:
             a = torch.from_numpy(np.asarray(grid[name], np.float32))
         cache[key] = a.to(device)
@@ -338,6 +356,81 @@ def trigger_tokens(h_w: torch.Tensor, grid: dict, mc_hat: torch.Tensor,
     phase = psi[..., None, :] + 2.0 * math.pi * (
         _grid_tensor(grid, "epoch_cyc", h_w.device) + cyc)
     het = torch.complex(torch.cos(phase), torch.sin(phase))
+    return pool_heterodyned(h_w[..., grid["i_lo"]:] * het, grid)
+
+
+# ── v3: the chirp-adapted static heterodyne ──────────────────────────────
+
+
+def _tau_0pn(freqs: np.ndarray, mc: float) -> np.ndarray:
+    """Newtonian time to merger [s] at GW frequency f for chirp mass mc."""
+    return (5.0 / 256.0 * (np.pi * freqs) ** (-8.0 / 3.0)
+            * (MTSUN_SI * mc) ** (-5.0 / 3.0))
+
+
+def build_chirp_token_grid(duration: float = 64.0, f_lo: float = 20.0,
+                           f_hi: float = 512.0, m_lo: float = 1.0,
+                           m_hi: float = 2.5, t_off_max: float = 1.5,
+                           alpha: float = 2.0,
+                           pad_multiple: int = 64) -> dict:
+    """The static token grid of the v3 front end (long_bns.py:73-178): one
+    fiducial heterodyne for the whole (Mc, t_off) prior, the TaylorF2
+    phase at the prior's t(f)-midpoint equal-mass chirp mass plus the
+    epoch duration/2, and pools sized so that the worst-case residual
+    phase spread a pool, 2π(Δt_chirp(f) + t_off_max)·Δf summed, stays
+    within alpha rad (greedy, as `_segment`). The segmentation and the
+    features are float64 numpy of the Newtonian chirp times and depend on
+    no float32 value, so they are JAX's exactly; `het` carries the port's
+    float32 TaylorF2 phase, computed on the CPU (JAX's is its own float32
+    phase: the two differ in the last bits of Ψ)."""
+    freqs = band_freqs(duration, f_hi)
+    cut = len(freqs)
+    i_lo = int(np.searchsorted(freqs, f_lo))
+    fb = freqs[i_lo:]
+    df = float(freqs[1] - freqs[0])
+    mc_lo, mc_hi = EQM * m_lo, EQM * m_hi
+    a_mid = 0.5 * (mc_lo ** (-5.0 / 3.0) + mc_hi ** (-5.0 / 3.0))
+    mc_fid = float(a_mid ** (-0.6))
+    m_fid = mc_fid / EQM
+
+    dt_chirp = 0.5 * (_tau_0pn(fb, mc_lo) - _tau_0pn(fb, mc_hi))
+    seg = _segment(2.0 * np.pi * (dt_chirp + t_off_max) * df, alpha)
+    n_tok = int(seg[-1]) + 1
+    L = int(math.ceil(n_tok / pad_multiple) * pad_multiple)
+    counts = np.maximum(np.bincount(seg, minlength=L).astype(np.float64),
+                        1.0)
+    ends = np.cumsum(np.bincount(seg, minlength=L)).astype(np.int32)
+    starts = np.concatenate([[0], ends[:-1]]).astype(np.int32)
+
+    psi = taylorf2_amp_phase(torch.tensor(fb, dtype=torch.float32), m_fid,
+                             m_fid, 0.0, 0.0, 100.0, 0.0)[1]
+    psi = psi.numpy().astype(np.float64)
+    epoch_cyc = np.mod(fb * (duration / 2.0), 1.0)
+    het = np.exp(1j * (psi + 2.0 * np.pi * epoch_cyc)).astype(np.complex64)
+
+    f_cen = np.zeros(L)
+    f_cen[:n_tok] = [fb[starts[t]:ends[t]].mean() if ends[t] > starts[t]
+                     else f_lo for t in range(n_tok)]
+    f_cen = np.maximum(f_cen, f_lo)
+    feat = np.stack([np.log(f_cen / f_lo) / np.log(f_hi / f_lo),
+                     np.log2(counts) / 10.0], axis=-1)
+    return {
+        "freqs": freqs, "i_lo": i_lo, "cut": cut, "L": L, "n_tok": n_tok,
+        "starts": starts, "ends": ends, "counts": counts.astype(np.float32),
+        "het": het, "feat": feat.astype(np.float32),
+        "mc_fid": mc_fid, "m_fid": m_fid, "duration": duration,
+        "config": {"kind": "chirp", "duration": duration, "f_lo": f_lo,
+                   "f_hi": f_hi, "m_lo": m_lo, "m_hi": m_hi,
+                   "t_off_max": t_off_max, "alpha": alpha,
+                   "pad_multiple": pad_multiple},
+    }
+
+
+def chirp_tokens(h_w: torch.Tensor, grid: dict) -> torch.Tensor:
+    """Whitened FD strain [..., n_det, F_cut] -> the v3 tokens
+    [..., L, 3·n_det + 2] (long_bns.py:204): the banded bins times the
+    grid's static heterodyne, pooled as `pool_heterodyned` pools."""
+    het = _grid_tensor(grid, "het", h_w.device)
     return pool_heterodyned(h_w[..., grid["i_lo"]:] * het, grid)
 
 
@@ -446,6 +539,22 @@ def simulate_long_bns_batch_v4(batch: int, grid: dict,
     return simulate_long_bns_v4_from_draws(draws, grid, amp_scale)
 
 
+def simulate_long_bns_v3_from_draws(draws: LongBNSDraws, grid: dict):
+    """long_bns.py:333 `simulate_long_bns_batch_v3` on given draws (no
+    trigger errors) -> (tokens [B, L, 3·n_det + 2], θ [B, 11]): the v1
+    waveform and noise model, tokenized by `chirp_tokens`."""
+    h_w = white_signal(draws.theta, grid["freqs"], grid["duration"])
+    return chirp_tokens(h_w + draws.noise, grid), draws.theta
+
+
+def simulate_long_bns_batch_v3(batch: int, grid: dict,
+                               generator: Optional[torch.Generator] = None,
+                               device="cuda"):
+    """A v3 training batch: draws (no trigger), then the apply step."""
+    draws = draw_long_bns(batch, grid["cut"], None, generator, device)
+    return simulate_long_bns_v3_from_draws(draws, grid)
+
+
 def simulate_long_bns_from_draws(draws: LongBNSDraws, duration: float = 64.0,
                                  n_bands: int = 64, per_band: int = 32,
                                  f_hi: float = 1024.0):
@@ -537,9 +646,12 @@ def trigger_features(trig: torch.Tensor, mc_lo: float,
 
 
 class SeqParallelAttention(nn.Module):
-    """long_bns.py:211 on one device: exact multi-head attention, written
-    as JAX's einsum and softmax (the logits divided by sqrt(head_dim)).
-    The q/k/v/o DenseGeneral kernels are carried into nn.Linear."""
+    """long_bns.py:211: exact multi-head attention, written as JAX's einsum
+    and softmax (the logits divided by sqrt(head_dim)). The q/k/v/o
+    DenseGeneral kernels are carried into nn.Linear. With `seq_group` (the
+    mesh's "model" group) x is this rank's slice of the sequence: the
+    queries stay local and the keys and values are gathered over the
+    group, differentiably; without one it is plain attention."""
 
     def __init__(self, d_model: int, n_heads: int):
         super().__init__()
@@ -547,13 +659,16 @@ class SeqParallelAttention(nn.Module):
         for name in ("q", "k", "v", "o"):
             self.add_module(name, nn.Linear(d_model, d_model))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_group=None) -> torch.Tensor:
         b, l, dm = x.shape
         h = self.n_heads
         dh = dm // h
         q = self.q(x).view(b, l, h, dh)
         k = self.k(x).view(b, l, h, dh)
         v = self.v(x).view(b, l, h, dh)
+        if seq_group is not None:
+            k = all_gather_seq(k, seq_group, dim=1)
+            v = all_gather_seq(v, seq_group, dim=1)
         a = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
         w = torch.exp(a - torch.amax(a, dim=-1, keepdim=True))
         w = w / torch.sum(w, dim=-1, keepdim=True)
@@ -567,7 +682,12 @@ class LongBNSEncoder(nn.Module):
     pre-LayerNorm blocks (flax's eps 1e-6, tanh GELU, feed-forward 2×),
     a mean over the sequence and the `out` projection. Float32, without
     TF32. Module names are the flax tree's (LayerNorm_0 ... auto-named in
-    call order: two a layer)."""
+    call order: two a layer).
+
+    With `seq_group` the tokens are this rank's slice of the sequence
+    (the group's ranks hold consecutive slices of equal length): the
+    slice takes its own positions, attention gathers the keys and values,
+    and the mean is the group's (JAX's pmean)."""
 
     def __init__(self, n_feat: int, d_model: int = 128, n_layers: int = 4,
                  n_heads: int = 8, context_dim: int = 256, patch: int = 1):
@@ -592,20 +712,30 @@ class LongBNSEncoder(nn.Module):
                                lambda: torch.from_numpy(
                                    sinusoidal_positions(n, self.d_model)))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, seq_group=None) -> torch.Tensor:
         b, lt, ft = tokens.shape
         if self.patch > 1:
             tokens = tokens.reshape(b, lt // self.patch, self.patch * ft)
+        n = tokens.shape[1]
+        if seq_group is None:
+            pos = self.positions(n, tokens.device)
+        else:
+            i = dist.get_rank(seq_group)
+            pos = self.positions(n * dist.get_world_size(seq_group),
+                                 tokens.device)[i * n:(i + 1) * n]
         with fp32_exact():
-            h = self.embed(tokens) + self.positions(tokens.shape[1],
-                                                    tokens.device)
+            h = self.embed(tokens) + pos
             for i in range(self.n_layers):
                 ln_a = getattr(self, f"LayerNorm_{2 * i}")
                 ln_f = getattr(self, f"LayerNorm_{2 * i + 1}")
-                h = h + getattr(self, f"attn_{i}")(ln_a(h))
+                h = h + getattr(self, f"attn_{i}")(ln_a(h), seq_group)
                 f = getattr(self, f"ff1_{i}")(ln_f(h))
                 h = h + getattr(self, f"ff2_{i}")(gelu(f))
-            return self.out(torch.mean(h, dim=1))
+            pooled = torch.mean(h, dim=1)
+            if seq_group is not None:
+                pooled = (all_reduce_sum(pooled, seq_group)
+                          / dist.get_world_size(seq_group))
+            return self.out(pooled)
 
 
 class LongBNSNPEv4(nn.Module):
@@ -664,14 +794,17 @@ class LongBNSNPEv4(nn.Module):
 
 
 class LongBNSNPE(nn.Module):
-    """The v1 model (long_bns.py:717): multiband tokens -> LongBNSEncoder
-    -> a coupling flow over ParamScaler's labels."""
+    """The v1 and v3 model (long_bns.py:717): tokens -> LongBNSEncoder ->
+    a coupling flow over ParamScaler's labels. n_feat is the tokens'
+    channels (flax infers it from the first batch): 2·n_det for v1's
+    multiband tokens, 3·n_det + 2 for v3's chirp tokens."""
 
     def __init__(self, enc: Optional[dict] = None, flow_layers: int = 6,
-                 flow_hidden: int = 128, flow_bins: int = 8):
+                 flow_hidden: int = 128, flow_bins: int = 8,
+                 n_feat: int = 2 * N_DETECTORS):
         super().__init__()
         cfg = dict(enc or {})
-        self.encoder = LongBNSEncoder(n_feat=2 * N_DETECTORS, **cfg)
+        self.encoder = LongBNSEncoder(n_feat=n_feat, **cfg)
         self.flow = CouplingNSF(features=11,
                                 context_features=cfg.get("context_dim", 256),
                                 num_layers=flow_layers, hidden=flow_hidden,
@@ -701,35 +834,143 @@ class LongBNSNPE(nn.Module):
         return self.sample_raw(tokens, n_samples, generator, z)[0]
 
 
+# ── sequence parallelism ─────────────────────────────────────────────────
+
+
+def _sharded_context(mesh, seq_len: int, patch: int):
+    """encode(encoder, tokens [B, L, F]) -> this rank's rows along "data"
+    of the context [B / n_data, C], its slice along "model" of the
+    sequence through the encoder with the "model" group (long_bns.py:
+    846-863). Raises as JAX does when a slice does not divide by the
+    patch."""
+    group = mesh.get_group("model")
+    l_loc = seq_len // mesh["model"].size()
+    if l_loc % patch:
+        raise ValueError(f"seq_len/n_shards={l_loc} not divisible by "
+                         f"patch={patch}")
+
+    def encode(encoder: LongBNSEncoder, tokens: torch.Tensor):
+        if tokens.shape[1] != seq_len:
+            raise ValueError(f"tokens of length {tokens.shape[1]}, the "
+                             f"encoder was sharded for {seq_len}")
+        rows = shard_rows(tokens.shape[0], mesh, "data")
+        cols = shard_rows(seq_len, mesh, "model")
+        return encoder(tokens[rows, cols], group)
+
+    return encode
+
+
+def make_sharded_encoder(mesh, seq_len: int, n_feat: int,
+                         cfg: Optional[dict] = None):
+    """(init_fn, apply_fn, apply_unsharded) for the sequence-parallel
+    encoder (long_bns.py:829). init_fn(generator=None) -> a LongBNSEncoder
+    of cfg with flax's initial distribution (the parameters: the same
+    module serves sharded and unsharded). apply_fn(encoder, tokens
+    [B, L, n_feat]) -> [B, context_dim] on every rank: each rank encodes
+    its block (rows along "data", its slice of L along "model"), and the
+    rows are gathered over "data", differentiably. apply_unsharded is the
+    plain module."""
+    from posteriflow_torch.train.trainer import init_params
+    cfg = dict(cfg or {})
+    encode = _sharded_context(mesh, seq_len, cfg.get("patch", 1))
+    data = mesh.get_group("data")
+
+    def init_fn(generator: Optional[torch.Generator] = None):
+        return init_params(LongBNSEncoder(n_feat=n_feat, **cfg), generator)
+
+    def apply_fn(encoder: LongBNSEncoder, tokens: torch.Tensor):
+        return all_gather_seq(encode(encoder, tokens), data, dim=0)
+
+    def apply_unsharded(encoder: LongBNSEncoder, tokens: torch.Tensor):
+        return encoder(tokens)
+
+    return init_fn, apply_fn, apply_unsharded
+
+
+def _sharded_mean(nll: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch's mean NLL from this rank's mean over its rows,
+    differentiable as this rank's share of it. Every rank of a "model"
+    group holds the same rows, so the loss is replicated over the group;
+    each rank backpropagates nll / (n_data · n_model), and the group's
+    collectives carry every rank's share into every copy of the encoder:
+    summing the parameters' gradients over all ranks then gives the
+    unsharded gradient, counting the replicated loss once. The value is
+    the mean over "data" of the ranks' means (equal rows a rank)."""
+    n_data, n_model = mesh["data"].size(), mesh["model"].size()
+    share = nll / (n_data * n_model)
+    value = all_reduce_sum(nll.detach(), mesh.get_group("data")) / n_data
+    return share + (value - share).detach()
+
+
+def make_sharded_nll(mesh, seq_len: int, npe: "LongBNSNPE"):
+    """The sequence-parallel training loss of LongBNSNPE (long_bns.py:765):
+    loss_fn(model, tokens [B, L, F], θ [B, 11]) -> the global batch's mean
+    NLL, the encoder sharded as make_sharded_encoder shards it, the flow
+    on this rank's rows. `model` is an LongBNSNPE of npe's configuration
+    (npe itself, typically): its parameters are the unsharded model's, so
+    checkpoints interchange. Every rank passes the whole batch. After
+    loss.backward(), sum the parameters' gradients over all ranks
+    (parallel/mesh.all_reduce_grads with the default group): that is the
+    unsharded loss's gradient."""
+    encode = _sharded_context(mesh, seq_len, npe.encoder.patch)
+
+    def loss_fn(model: "LongBNSNPE", tokens: torch.Tensor,
+                theta: torch.Tensor) -> torch.Tensor:
+        rows = shard_rows(tokens.shape[0], mesh, "data")
+        ctx = encode(model.encoder, tokens)
+        y = model.scaler.normalize(theta[rows])
+        return _sharded_mean(-torch.mean(model.flow.log_prob(y, ctx)), mesh)
+
+    return loss_fn
+
+
+def make_sharded_nll_v4(mesh, seq_len: int, npe: "LongBNSNPEv4"):
+    """make_sharded_nll for LongBNSNPEv4 (long_bns.py:799): loss_fn(model,
+    tokens, θ, trig [B, 1 + D]); the sharded context joined by this rank's
+    rows of the trigger features, the labels trigger-relative."""
+    encode = _sharded_context(mesh, seq_len, npe.encoder.patch)
+
+    def loss_fn(model: "LongBNSNPEv4", tokens: torch.Tensor,
+                theta: torch.Tensor, trig: torch.Tensor) -> torch.Tensor:
+        rows = shard_rows(tokens.shape[0], mesh, "data")
+        ctx = torch.cat([encode(model.encoder, tokens),
+                         trigger_features(trig[rows], model.mc_lo,
+                                          model.mc_hi)], dim=-1)
+        y = model.scaler.normalize(theta[rows], trig[rows])
+        return _sharded_mean(-torch.mean(model.flow.log_prob(y, ctx)), mesh)
+
+    return loss_fn
+
+
 # ── configuration ────────────────────────────────────────────────────────
 
 
 def model_config(cal_cfg: dict) -> dict:
-    """The `config` of a run's calibration.json -> {"v4": bool, "enc",
-    "tokens", "flow_bins"}, as scripts/validate_long_bns.py:102-118 reads
-    it: the nested enc/tokens dicts verbatim, the flat keys for older
-    calibrations, tokens {"kind": "v1"} where none is recorded."""
+    """The `config` of a run's calibration.json -> {"v4": bool, "kind",
+    "enc", "tokens", "flow_bins"}, as scripts/validate_long_bns.py:102-118
+    reads it: the nested enc/tokens dicts verbatim, the flat keys for
+    older calibrations, tokens {"kind": "v1"} where none is recorded;
+    "kind" is the tokens' kind (v1, chirp for v3, trigger for v4)."""
     enc = cal_cfg.get("enc") or {k: cal_cfg[k] for k in ("d_model",
                                                          "n_layers")
                                  if k in cal_cfg}
     tok = cal_cfg.get("tokens", {"kind": "v1"})
     kind = tok.get("kind")
-    if kind == "chirp":
-        raise NotImplementedError(
-            "the v3 chirp front end (build_chirp_token_grid, chirp_tokens, "
-            "simulate_long_bns_batch_v3) is not ported yet: ROADMAP §1 "
-            "item 4")
-    return {"v4": kind == "trigger", "enc": dict(enc), "tokens": dict(tok),
+    return {"v4": kind == "trigger", "kind": kind, "enc": dict(enc),
+            "tokens": dict(tok),
             "flow_bins": cal_cfg.get("flow", {}).get("bins", 12)}
 
 
 def build_model(cal_cfg: dict) -> nn.Module:
     """The model a calibration.json's config describes (weights not
-    loaded)."""
+    loaded): LongBNSNPEv4 for trigger tokens, else LongBNSNPE at its
+    default 8 bins (JAX's scripts build it so for v1 and v3 alike, whatever
+    the config's flow bins) over 6 (v1) or 3·n_det + 2 (v3) features."""
     mc = model_config(cal_cfg)
     if mc["v4"]:
         tok = mc["tokens"]
         return LongBNSNPEv4(enc=mc["enc"], flow_bins=mc["flow_bins"],
                             sigma_mc_rel=tok["sigma_mc_rel"],
                             sigma_t=tok["sigma_t"])
-    return LongBNSNPE(enc=mc["enc"])
+    n_feat = 3 * N_DETECTORS + 2 if mc["kind"] == "chirp" else 2 * N_DETECTORS
+    return LongBNSNPE(enc=mc["enc"], n_feat=n_feat)

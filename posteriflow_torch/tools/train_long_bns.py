@@ -1,35 +1,44 @@
 """Train the long-BNS NPE with the port and write its calibration.
 
-The port's twin of scripts/train_long_bns.py, on one device, with its
-flags and defaults: batches are simulated on the device every step
-(models/long_bns.py), the loss is the model's mean NLL, and the optimizer
-is JAX's (scripts/train_long_bns.py:175-180) built from train/trainer.py's
-pieces: clip_by_global_norm(10), then AdamW with weight decay 1e-5 under
+The port's twin of scripts/train_long_bns.py, with its flags and defaults:
+batches are simulated on the device every step (models/long_bns.py; v1
+multiband, v3 chirp-adapted or v4 trigger-conditioned tokens), the loss is
+the model's mean NLL, and the optimizer is JAX's
+(scripts/train_long_bns.py:175-180) built from train/trainer.py's pieces:
+clip_by_global_norm(10), then AdamW with weight decay 1e-5 under
 warmup_cosine_decay(0, lr, min(200, max(1, steps // 10)),
 max(steps, warmup + 1), end 0.02·lr). Every --eval-every steps (and after
 the first) it records train and validation NLL and the conditioning delta
-(v4: signal ΔNLL; v1: θ-shuffle ΔNLL) in history.json and saves the
+(v4: signal ΔNLL; v1 and v3: θ-shuffle ΔNLL) in history.json and saves the
 weights; at the end a coverage + SBC battery writes calibration.json with
-JAX's keys.
+JAX's keys. As in JAX's script, v1 and v3 train LongBNSNPE at its default
+8 bins; --flow-bins sets v4's.
 
-Outputs in --outdir: state.pt (the model's state_dict; the msgpack
-encoder is ROADMAP §1 item 3),
-history.json, calibration.json (written up front with "pending": true)
-and, for v4, grid.npz: the trigger grid it trained on, the stored grid of
-the config where there is one (models/grids/), else the port's own build.
---resume restores the weights from state.pt and, as JAX's does, starts a
-fresh optimizer, so the schedule restarts at count 0.
+Outputs in --outdir: params.msgpack (the weights as flax writes them, so
+JAX's scripts/validate_long_bns.py reads a port run) and state.pt (the
+model's state_dict), history.json, calibration.json (written up front
+with "pending": true) and, for v4, grid.npz: the trigger grid it trained
+on, the stored grid of the config where there is one (models/grids/),
+else the port's own build. --resume restores the weights from state.pt
+and, as JAX's does, starts a fresh optimizer, so the schedule restarts at
+count 0.
 
-Not ported: --tokens v3 (ROADMAP §1 item 4) and --mesh (item 5) raise;
---prng takes only JAX's default (the port draws from torch.Generators,
-seeded by step: ROADMAP §1 item 3). --scan N runs the steps in epochs of N
+--mesh N trains through the sequence-parallel loss
+(models/long_bns.make_sharded_nll[_v4]) on a ('data' 1, 'model' N) grid of
+N ranks: under torchrun as it sets them, else spawned here, one card a
+rank (N may not exceed the card count) or, with --device cpu, N gloo
+processes. Every rank trains, evaluates and calibrates the same replicated
+model; rank 0 writes. --prng takes only JAX's default (the port draws from
+torch.Generators, seeded by step). --scan N runs the steps in epochs of N
 and records at each epoch's end, as JAX's scanned path does.
 
     python -m posteriflow_torch.tools.train_long_bns --outdir model/lbns \\
         --steps 50000 --batch 64
+    python -m posteriflow_torch.tools.train_long_bns --tokens v3 \\
+        --outdir model/lbns_v3 --steps 4000
     python -m posteriflow_torch.tools.train_long_bns --device cpu \\
         --outdir /tmp/lbns --steps 2 --batch 2 --d-model 16 --n-layers 1 \\
-        --cal-events 4 --cal-post 8
+        --cal-events 4 --cal-post 8 [--mesh 2]
 """
 
 from __future__ import annotations
@@ -113,12 +122,15 @@ def _parser() -> argparse.ArgumentParser:
 def setup(args, device):
     """The run's grid, model, optimizer and batch function ->
     SimpleNamespace(model, opt, grid, batch_fn, enc_cfg, tok_cfg, v4, args,
-    device).
+    device, mesh, loss_fn).
     batch_fn(generator, amp_scale=1.0) simulates one batch; for v4 its
-    amp_scale 0 gives the noise-only tokens of the same draws."""
+    amp_scale 0 gives the noise-only tokens of the same draws. With
+    --mesh, loss_fn is the sequence-parallel loss over the process group's
+    ('data' 1, 'model' N) mesh, else None (the model's own loss)."""
     import torch
 
     from posteriflow_torch.models import long_bns as lb
+    from posteriflow_torch.physics.constants import N_DETECTORS
     from posteriflow_torch.train.trainer import init_params
 
     v4 = args.tokens == "v4"
@@ -137,17 +149,31 @@ def setup(args, device):
         model = lb.LongBNSNPEv4(enc=enc_cfg, flow_bins=args.flow_bins,
                                 sigma_mc_rel=args.sigma_mc_rel,
                                 sigma_t=args.sigma_t)
+        seq_len = grid["L"]
 
         def batch_fn(gen, amp_scale=1.0, draws=None):
             if draws is None:
                 draws = lb.draw_long_bns(args.batch, grid["cut"],
                                          grid["trunc"], gen, device)
             return lb.simulate_long_bns_v4_from_draws(draws, grid, amp_scale)
+    elif args.tokens == "v3":
+        grid = lb.build_chirp_token_grid(duration=args.duration,
+                                         f_hi=args.f_hi, alpha=args.alpha)
+        tok_cfg = grid["config"]
+        enc_cfg = dict(d_model=args.d_model, n_layers=args.n_layers,
+                       n_heads=args.n_heads, patch=args.patch)
+        model = lb.LongBNSNPE(enc=enc_cfg, n_feat=3 * N_DETECTORS + 2)
+        seq_len = grid["L"]
+
+        def batch_fn(gen, amp_scale=1.0, draws=None):
+            return lb.simulate_long_bns_batch_v3(args.batch, grid, gen,
+                                                 device)
     else:
         tok_cfg = {"kind": "v1", "n_bands": args.n_bands,
                    "per_band": args.per_band}
         enc_cfg = dict(d_model=args.d_model, n_layers=args.n_layers)
         model = lb.LongBNSNPE(enc=enc_cfg)
+        seq_len = args.n_bands * args.per_band
 
         def batch_fn(gen, amp_scale=1.0, draws=None):
             return lb.simulate_long_bns_batch(
@@ -156,19 +182,31 @@ def setup(args, device):
     init_params(model, torch.Generator().manual_seed(args.seed))
     model.to(device)
     opt = make_optimizer(model, opt_config(args.lr, args.steps))
+    mesh = loss_fn = None
+    if args.mesh:
+        from posteriflow_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(args.mesh, model_parallel=args.mesh)
+        make = lb.make_sharded_nll_v4 if v4 else lb.make_sharded_nll
+        loss_fn = make(mesh, seq_len, model)
     return SimpleNamespace(model=model, opt=opt, grid=grid,
                            batch_fn=batch_fn, enc_cfg=enc_cfg,
-                           tok_cfg=tok_cfg, v4=v4, args=args, device=device)
+                           tok_cfg=tok_cfg, v4=v4, args=args, device=device,
+                           mesh=mesh, loss_fn=loss_fn)
 
 
 def train_step(run, gen) -> float:
     """One step: simulate, forward, backward (trainer.backward, TF32 off),
-    clip + AdamW. Returns the loss."""
+    with a mesh the gradients summed over every rank, then clip + AdamW.
+    Returns the loss."""
+    from posteriflow_torch.parallel.mesh import all_reduce_grads
     from posteriflow_torch.train.trainer import backward
     batch = run.batch_fn(gen)
-    loss = run.model(*batch)
+    loss = (run.model(*batch) if run.loss_fn is None
+            else run.loss_fn(run.model, *batch))
     run.opt.zero_grad()
     backward(loss)
+    if run.mesh is not None:
+        all_reduce_grads(run.opt.params, None)
     run.opt.step()
     return float(loss.detach())
 
@@ -197,23 +235,26 @@ def _generator(device, seed: int):
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _save_state(run, path: Path):
+def _save_state(run, outdir: Path):
+    """state.pt (atomically) and params.msgpack, as flax writes it."""
     import torch
+
+    from posteriflow_torch.train.checkpoints import write_params
+    path = outdir / "state.pt"
     tmp = path.with_suffix(".tmp")
     torch.save({"model": run.model.state_dict()}, tmp)
     tmp.replace(path)
+    write_params(run.model, outdir / "params.msgpack")
+
+
+def _mesh_rank(rank: int, argv):
+    run_training(argv)
 
 
 def run_training(argv=None):
     """main's body -> (history, calibration record, the run namespace)."""
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.tokens == "v3":
-        ap.error("--tokens v3: the v3 chirp front end is not ported yet "
-                 "(ROADMAP §1 item 4)")
-    if args.mesh:
-        ap.error("--mesh: sequence-parallel training is not ported yet "
-                 "(ROADMAP §1 item 5)")
     if args.prng != "threefry2x32":
         ap.error("--prng: the port draws from torch.Generators seeded by "
                  "step; JAX's PRNG choice waits for ROADMAP §1 item 3")
@@ -221,6 +262,17 @@ def run_training(argv=None):
         args.device = "cpu"
 
     import torch
+
+    if args.mesh:
+        from posteriflow_torch.parallel.mesh import init_distributed, run_ranks
+        if run_ranks(_mesh_rank, args.mesh, args.device, (argv,)):
+            outdir = Path(args.outdir)
+            return (json.loads((outdir / "history.json").read_text()),
+                    json.loads((outdir / "calibration.json").read_text()),
+                    None)
+        init_distributed(device=args.device)
+        if torch.device(args.device).type == "cuda":
+            args.device = f"cuda:{torch.cuda.current_device()}"
     from scipy.stats import kstest
 
     from posteriflow_torch import PARAM_NAMES
@@ -231,13 +283,15 @@ def run_training(argv=None):
     log = setup_logging()
     device = torch.device(args.device)
     outdir = Path(args.outdir)
-    outdir.mkdir(parents=True, exist_ok=True)
     run = setup(args, device)
-    if run.v4:
+    writer = run.mesh is None or run.mesh.get_rank() == 0
+    if writer:
+        outdir.mkdir(parents=True, exist_ok=True)
+    if run.v4 and writer:
         lb.save_grid(run.grid, outdir / "grid.npz")
     n_par = sum(p.numel() for p in run.model.parameters())
     log.info("LongBNSNPE%s: %s params, tokens L=%s", "v4" if run.v4 else "",
-             f"{n_par:,}", run.grid["L"] if run.v4 else
+             f"{n_par:,}", run.grid["L"] if run.grid is not None else
              args.n_bands * args.per_band)
 
     config = {"duration": args.duration, "steps": args.steps,
@@ -248,7 +302,7 @@ def run_training(argv=None):
               "n_bands": args.n_bands, "per_band": args.per_band,
               **{k: run.enc_cfg[k] for k in ("d_model", "n_layers")}}
     cal_path = outdir / "calibration.json"
-    if not (args.resume and cal_path.exists()):
+    if writer and not (args.resume and cal_path.exists()):
         cal_path.write_text(json.dumps({"pending": True, "config": config},
                                        indent=2))
 
@@ -272,8 +326,10 @@ def run_training(argv=None):
         log.info("step %5d | train %.3f | val %.3f | %s %.3f | %.0fs",
                  step_no, rec["train_nll"], vloss, delta_key, delta,
                  rec["seconds"])
-        _save_state(run, ckpt)
-        (outdir / "history.json").write_text(json.dumps(history, indent=2))
+        if writer:
+            _save_state(run, outdir)
+            (outdir / "history.json").write_text(json.dumps(history,
+                                                            indent=2))
 
     t0 = time.time()
     done = history[-1]["step"] if history else 0
@@ -329,14 +385,16 @@ def run_training(argv=None):
         "final_val_nll": history[-1]["val_nll"] if history else None,
         "config": config,
     }
-    cal_path.write_text(json.dumps(cal, indent=2))
+    if writer:
+        cal_path.write_text(json.dumps(cal, indent=2))
     log.info("cov50 violations: %d; cov90 violations: %d; SBC pass %.2f",
              cal["cov50_violations"], cal["cov90_violations"],
              cal["sbc_pass_frac"])
-    print(json.dumps({k: cal[k] for k in ("cov50_violations",
-                                          "cov90_violations",
-                                          "sbc_pass_frac",
-                                          "final_val_nll")}))
+    if writer:
+        print(json.dumps({k: cal[k] for k in ("cov50_violations",
+                                              "cov90_violations",
+                                              "sbc_pass_frac",
+                                              "final_val_nll")}))
     return history, cal, run
 
 

@@ -21,19 +21,27 @@ mixes in its real noise with the config's real_noise_prob (0.5 if that is
 not positive) and validates on a real-noise batch too. A real_noise_prob
 above 0 without a bank is an error, as in the JAX script. --profile-dir
 writes a torch.profiler trace of the first epoch to <dir>/trace.json.
---mesh raises until the data-parallel slice (ROADMAP §1 item 5); the JAX
+--mesh shards each step over all visible ranks along "data"
+(parallel/mesh.py; fit(mesh=)): under torchrun one rank a process, as
+torchrun sets them; without a launcher it spawns one rank per visible card
+(one gloo rank with --device cpu). Rank 0 writes the run. The JAX
 script's --prng picks JAX's bit generator, which torch has no counterpart
 of, so it is not taken.
+
+    torchrun --nproc-per-node 4 -m posteriflow_torch.tools.train_npe \
+        --mesh --config configs/npe_r6.yaml --outdir model/dp
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
+from pathlib import Path
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--config", help="YAML or JSON TrainConfig, a "
@@ -67,16 +75,49 @@ def main(argv=None):
     ap.add_argument("--grad-clip", type=float, default=None,
                     help="threshold for global mode / x0.01 factor for agc")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard the step over all visible devices (not yet "
-                         "ported: ROADMAP §1 item 5)")
+                    help="shard the step over all visible devices")
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of the first epoch "
                          "to <dir>/trace.json")
     ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def main(argv=None):
+    """Train; returns the run's history (rank 0's, read back from
+    history.json, when --mesh spawned the ranks)."""
+    ap = _parser()
     args = ap.parse_args(argv)
     if args.mesh:
-        raise NotImplementedError("--mesh: data parallelism is ROADMAP §1 "
-                                  "item 5, not yet ported")
+        import torch
+
+        from posteriflow_torch.parallel.mesh import run_ranks
+        n = (torch.cuda.device_count()
+             if torch.device(args.device).type == "cuda" else 1)
+        if run_ranks(_mesh_rank, n, args.device, (argv,)):
+            return json.loads((Path(args.outdir) / "history.json")
+                              .read_text())
+    return _train(ap, args)
+
+
+def _mesh_rank(rank: int, argv):
+    ap = _parser()
+    _train(ap, ap.parse_args(argv))
+
+
+def _train(ap, args):
+    device, mesh = args.device, None
+    if args.mesh:
+        import torch
+
+        from posteriflow_torch.parallel.mesh import (init_distributed,
+                                                     make_mesh)
+        init_distributed(device=args.device)
+        mesh = make_mesh()
+        if torch.device(args.device).type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        if mesh.get_rank() != 0:
+            args.profile_dir = None
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
@@ -110,7 +151,7 @@ def main(argv=None):
     if args.noise_bank:
         from posteriflow_torch.data.noise_bank import load_noise_bank
         bank = load_noise_bank(args.noise_bank, psd_bands=cfg.sim.psd_bands,
-                               device=args.device)
+                               device=device)
         if cfg.sim.real_noise_prob <= 0.0:
             cfg = dataclasses.replace(
                 cfg, sim=dataclasses.replace(cfg.sim, real_noise_prob=0.5))
@@ -119,14 +160,15 @@ def main(argv=None):
             args.noise_bank, bank.n_segments, cfg.sim.real_noise_prob)
     elif cfg.sim.real_noise_prob > 0.0:
         ap.error("--real-noise-prob needs --noise-bank")
-    with torch_trace(args.profile_dir, args.device) as trace:
+    with torch_trace(args.profile_dir, device) as trace:
         _, history = fit(cfg, args.outdir, epochs=args.epochs,
                          steps_per_epoch=args.steps_per_epoch,
                          seed=args.seed, ckpt_every=args.ckpt_every,
                          init_from=args.init_from,
-                         resume_from=args.resume_from, device=args.device,
+                         resume_from=args.resume_from, device=device,
                          bank=bank,
-                         on_epoch_end=trace and (lambda rec: trace.stop()))
+                         on_epoch_end=trace and (lambda rec: trace.stop()),
+                         mesh=mesh)
     return history
 
 

@@ -4,7 +4,7 @@ The port's twin of scripts/validate_long_bns.py, with its gates, flags
 and report keys. On fixed seeded events, in chunks (rounded up, as JAX
 does), over the 11 aligned parameters of the BNS prior:
 
-  - v1: context-shuffle ΔNLL > 5 nats; v4: signal ΔNLL > 2 nats (the NLL
+  - v1 and v3: context-shuffle ΔNLL > 5 nats; v4: signal ΔNLL > 2 nats (the NLL
     gap between noise-only and signal tokens at the same θ, trigger and
     noise) and mc_sharpen < 0.8 (the median ratio of the posterior's
     chirp-mass std to the trigger's residual prior, σ_mc·M̂c)
@@ -18,7 +18,8 @@ The model directory holds calibration.json and the weights: a JAX
 release's params.msgpack or a port run's state.pt (tools/train_long_bns.py).
 A v4 model is served on the trigger grid in its directory (grid.npz, which
 a port run writes) or else on the grid stored for its tokens config
-(models/grids/); a config with neither raises.
+(models/grids/); a config with neither raises. A v3 ("chirp") model's grid
+is rebuilt from its config, as the JAX script rebuilds it.
 
 The draws of chunk i come from a torch.Generator seeded with
 seed·1_000_003 + i; the streams are not JAX's, so the figures agree with a
@@ -99,13 +100,17 @@ def chunk_stats(model, cal_cfg: dict, grid, gen, n_events: int, n_post: int,
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
 
-    v4 = grid is not None
+    kind = lb.model_config(cal_cfg)["kind"]
+    v4 = kind == "trigger"
     t0 = time.perf_counter()
     if v4:
         draws = lb.draw_long_bns(n_events, grid["cut"], grid["trunc"], gen,
                                  device)
         tokens, theta, trig = lb.simulate_long_bns_v4_from_draws(draws, grid)
         tok0, _, _ = lb.simulate_long_bns_v4_from_draws(draws, grid, 0.0)
+    elif kind == "chirp":
+        tokens, theta = lb.simulate_long_bns_batch_v3(n_events, grid, gen,
+                                                      device)
     else:
         sim = dict(duration=cal_cfg["duration"], n_bands=cal_cfg["n_bands"],
                    per_band=cal_cfg["per_band"])
@@ -178,8 +183,9 @@ def run(argv=None):
     mdir = Path(args.model)
     model, cal_cfg, grid = load_long_bns(mdir, device=device)
     model.eval()
-    is_v4 = grid is not None
-    log.info("loaded %s (%s) on %s", mdir, "v4" if is_v4 else "v1", device)
+    kind = cal_cfg.get("tokens", {}).get("kind", "v1")
+    is_v4 = kind == "trigger"
+    log.info("loaded %s (%s tokens) on %s", mdir, kind, device)
 
     t0 = time.time()
     n_chunks = max(1, -(-args.n_events // args.chunk))

@@ -173,14 +173,15 @@ def load_release(release_dir) -> Tuple[Dict[str, torch.Tensor], NPEConfig,
 
 def load_long_bns(model_dir, device="cuda"):
     """A long-BNS run or release directory -> (model on `device`, the
-    `config` of its calibration.json, its trigger grid or None for v1).
+    `config` of its calibration.json, its token grid or None for v1).
 
     The config is read exactly as scripts/validate_long_bns.py:102-118
     reads it (long_bns_v1 has no meta.json). The weights are
     params.msgpack (a JAX release) or state.pt (a port run, which also
-    holds the grid it trained on as grid.npz). The grid is the directory's
-    own grid.npz where there is one, else the stored grid of the tokens
-    config; a v4 config without either raises."""
+    holds the grid it trained on as grid.npz). A v4 grid is the
+    directory's own grid.npz where there is one, else the stored grid of
+    the tokens config (a v4 config without either raises); a v3 (chirp)
+    grid is rebuilt from its config."""
     from posteriflow_torch.models import long_bns as lb  # imports us
     model_dir = Path(model_dir)
     cal_cfg = json.loads((model_dir / "calibration.json")
@@ -194,10 +195,12 @@ def load_long_bns(model_dir, device="cuda"):
             (model_dir / "params.msgpack").read_bytes()))
     model.load_state_dict(sd, strict=True)
     grid = None
-    if lb.model_config(cal_cfg)["v4"]:
-        own = model_dir / "grid.npz"
-        grid = (lb.load_grid(own) if own.is_file()
-                else lb.load_stored_grid(cal_cfg["tokens"]))
+    kind = lb.model_config(cal_cfg)["kind"]
+    own = model_dir / "grid.npz"
+    if kind == "trigger" and own.is_file():
+        grid = lb.load_grid(own)
+    elif kind in ("trigger", "chirp"):
+        grid = lb.load_stored_grid(cal_cfg["tokens"])
     return model.to(device), cal_cfg, grid
 
 

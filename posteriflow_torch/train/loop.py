@@ -1,8 +1,7 @@
 """The training loop (torch): epochs of simulate + train steps, per-epoch
 diagnostics, calibration-gated checkpoint selection, history.json.
 
-Port of posteriflow_tpu/train/loop.py:39-232 without the mesh (ROADMAP
-§1 item 5):
+Port of posteriflow_tpu/train/loop.py:39-232:
 
   - a fixed validation batch (the same seed every epoch) so that metrics
     compare across epochs; with a noise bank, real-noise mixing in
@@ -14,7 +13,11 @@ Port of posteriflow_tpu/train/loop.py:39-232 without the mesh (ROADMAP
     draws from one fixed seed;
   - checkpoints last, epoch_XXXX every `ckpt_every` epochs and the gated
     best, each state.pt + meta.json;
-  - history.json rewritten every epoch with the JAX package's record keys.
+  - history.json rewritten every epoch with the JAX package's record keys;
+  - with a mesh (`mesh=`, parallel/mesh.py) the steps are data-parallel
+    (trainer.make_train_epoch), every rank validates on the same batch,
+    so every rank selects the same best epoch, and rank 0 alone writes
+    history.json and the checkpoints and calls the hook.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from posteriflow_torch.data.noise_bank import NoiseBank
+from posteriflow_torch.parallel.mesh import barrier
 from posteriflow_torch.physics.simulator import simulate_batch
 from posteriflow_torch.train.checkpoints import CheckpointManager, load_release
 from posteriflow_torch.train.diagnostics import make_diagnostics
@@ -76,7 +81,7 @@ def fit(cfg: TrainConfig, outdir, epochs: int = 60,
         resume_from: Optional[str] = None, device="cuda",
         bank: Optional[NoiseBank] = None,
         val_batch_fn: Optional[Callable] = None,
-        on_epoch_end: Optional[Callable[[dict], None]] = None):
+        on_epoch_end: Optional[Callable[[dict], None]] = None, mesh=None):
     """Train LeanNPE on `device`; returns (state, history).
 
     val_batch_fn(generator) -> EventBatch replaces the default Gaussian
@@ -94,11 +99,18 @@ def fit(cfg: TrainConfig, outdir, epochs: int = 60,
     and shape into a fresh init) or a training checkpoint directory
     (weights, fresh optimizer). resume_from: a training checkpoint
     directory whose whole state (weights, optimizer, step) continues, with
-    the epochs and history of its run."""
+    the epochs and history of its run.
+
+    mesh: a DeviceMesh over every rank (parallel/mesh.py); each step
+    trains its rows along "data" of the global batch of cfg.batch_size
+    events. Every rank calls fit with the same arguments; rank 0 alone
+    writes, and fit returns on every rank after its last write."""
     dev = torch.device(device)
     outdir = Path(outdir)
-    outdir.mkdir(parents=True, exist_ok=True)
-    ckpts = CheckpointManager(outdir / "ckpt")
+    writer = mesh is None or dist.get_rank() == 0
+    if writer:
+        outdir.mkdir(parents=True, exist_ok=True)
+        ckpts = CheckpointManager(outdir / "ckpt")
 
     state = init_state(cfg, generator=torch.Generator().manual_seed(
         step_seed(seed, 0, _INIT)), device=dev)
@@ -138,7 +150,7 @@ def fit(cfg: TrainConfig, outdir, epochs: int = 60,
     n_params = sum(p.numel() for p in state.model.parameters())
     log.info("LeanNPE parameters: %s", f"{n_params:,}")
 
-    epoch_fn = make_train_epoch(cfg, steps_per_epoch, bank)
+    epoch_fn = make_train_epoch(cfg, steps_per_epoch, bank, mesh)
     eval_nll = make_eval_nll(cfg)
     diagnostics = make_diagnostics(cfg, n_events=n_val_events)
     cal_metrics_fn = make_calibration_metrics(cfg)
@@ -203,17 +215,21 @@ def fit(cfg: TrainConfig, outdir, epochs: int = 60,
             "PASS" if rec["gate_passed"] else "fail",
             int(rec["epoch_seconds"]))
 
+        if select_best(history) == epoch:
+            best_epoch = epoch
+        if not writer:
+            continue
         ckpts.save("last", state, cfg, rec, epoch)
         if ckpt_every and epoch % ckpt_every == 0:
             ckpts.save(f"epoch_{epoch:04d}", state, cfg, rec, epoch)
-        if select_best(history) == epoch:
-            best_epoch = epoch
+        if best_epoch == epoch:
             ckpts.save("best", state, cfg, rec, epoch)
 
         (outdir / "history.json").write_text(json.dumps(history, indent=2))
         if on_epoch_end:
             on_epoch_end(rec)
 
+    barrier(mesh)
     log.info("done. best epoch %d -> %s", best_epoch,
              outdir / "ckpt" / "best")
     return state, history

@@ -16,7 +16,11 @@ Port of posteriflow_tpu/train/trainer.py:37-219. What changes in PyTorch:
   - an epoch is a Python loop over steps, and each step draws its batch
     from a torch.Generator seeded by (seed, epoch, step);
   - on the card the spline runs its CUDA kernels forward and backward
-    (ops/rqs_cuda.py RqsForwardFn).
+    (ops/rqs_cuda.py RqsForwardFn);
+  - data parallelism (`mesh=`) is one process a device: each rank draws
+    the whole step's events, simulates its rows, and sums its gradients
+    with the other ranks' before the clip (GSPMD's all-reduce), with the
+    model's parameters and names unchanged.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from posteriflow_torch.data.noise_bank import NoiseBank
@@ -34,8 +39,13 @@ from posteriflow_torch.models.encoder import (AttentionPool,
                                               LeanStrainEncoder)
 from posteriflow_torch.models.flow import Conditioner
 from posteriflow_torch.models.npe import LeanNPE, NPEConfig
+from posteriflow_torch.parallel.mesh import (all_reduce_grads,
+                                             all_reduce_sum, shard_batch)
 from posteriflow_torch.physics.simulator import (EventBatch, SimConfig,
+                                                 draw_events, draw_real,
+                                                 mixes_real_noise,
                                                  simulate_batch)
+from posteriflow_torch.prior import sample_batch
 from posteriflow_torch.train.checkpoints import flax_view
 from posteriflow_torch.utils.precision import fp32_exact
 
@@ -281,10 +291,16 @@ def init_state(cfg: TrainConfig, generator: Optional[torch.Generator] = None,
     return TrainState(model=model, opt=make_optimizer(cfg, model), cfg=cfg)
 
 
-def batch_nll(model: LeanNPE, batch: EventBatch) -> torch.Tensor:
+def batch_nll(model: LeanNPE, batch: EventBatch,
+              group=None) -> torch.Tensor:
     """Mean per-signal NLL over a batch of events: the encoder once per
     event, the flow once over the flattened [B·S] (event, rank) grid, dead
-    slots masked out (posteriflow_tpu/train/trainer.py:101-121)."""
+    slots masked out (posteriflow_tpu/train/trainer.py:101-121).
+
+    With a process group the batch is this rank's rows of a global batch:
+    the masked sum is divided by the live slots of the whole batch (summed
+    over the group, no gradient), so that the group's results sum to the
+    global mean, as GSPMD's is one mean over the global batch."""
     asd = batch.asd_bands if model.cfg.uses_asd_bands else None
     context = model.encode(batch.strain, asd)
     b, s, p = batch.params.shape
@@ -294,7 +310,10 @@ def batch_nll(model: LeanNPE, batch: EventBatch) -> torch.Tensor:
     ranks = slots.repeat(b)
     nll_all = model.nll_from_context(ctx_rep, theta, ranks).reshape(b, s)
     mask = (slots[None, :] < batch.n_sig[:, None]).float()
-    return torch.sum(nll_all * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask)
+    if group is not None:
+        count = all_reduce_sum(count, group)
+    return torch.sum(nll_all * mask) / torch.clamp(count, min=1.0)
 
 
 def backward(loss: torch.Tensor):
@@ -315,16 +334,31 @@ def component_grad_norms(model: LeanNPE) -> Dict[str, torch.Tensor]:
     return out
 
 
-def train_step(state: TrainState, batch: EventBatch) -> Dict[str, torch.Tensor]:
+def train_step(state: TrainState, batch: EventBatch,
+               group=None) -> Dict[str, torch.Tensor]:
     """One update on `batch`: NLL, backward, clip, AdamW. The metrics stay
-    on the device (no synchronisation)."""
+    on the device (no synchronisation).
+
+    With a process group, `batch` is this rank's rows of the global batch:
+    the gradients are summed over the group after the backward, so that
+    the clip, the norms and the update see the global batch's gradient
+    identically on every rank, and the metrics are the global batch's."""
     state.opt.zero_grad()
-    loss = batch_nll(state.model, batch)
+    loss = batch_nll(state.model, batch, group)
     backward(loss)
+    if group is not None:
+        all_reduce_grads(state.opt.params, group)
     grads = state.opt.grads()
-    metrics = {"nll": loss.detach(), "grad_norm": global_norm(grads),
-               "mean_nsig": batch.n_sig.float().mean(),
-               "mean_snr": batch.net_snr.mean()}
+    loss = loss.detach()
+    mean_nsig = batch.n_sig.float().mean()
+    mean_snr = batch.net_snr.mean()
+    if group is not None:
+        stats = all_reduce_sum(torch.stack([loss, mean_nsig, mean_snr]),
+                               group)
+        loss = stats[0]
+        mean_nsig, mean_snr = stats[1:] / dist.get_world_size(group)
+    metrics = {"nll": loss, "grad_norm": global_norm(grads),
+               "mean_nsig": mean_nsig, "mean_snr": mean_snr}
     metrics.update(component_grad_norms(state.model))
     state.opt.step()
     return metrics
@@ -340,25 +374,58 @@ def _device(state: TrainState) -> torch.device:
     return next(state.model.parameters()).device
 
 
-def make_train_step(cfg: TrainConfig, bank: Optional[NoiseBank] = None):
+def simulate_shard(cfg: TrainConfig, mesh, device,
+                   generator: torch.Generator,
+                   bank: Optional[NoiseBank] = None) -> EventBatch:
+    """This rank's rows along "data" of the batch that simulate_batch
+    draws from `generator`: every rank draws the whole batch's prior
+    parameters and event draws (and the real-noise draws with a bank), in
+    simulate_batch's order, keeps its rows and simulates only those. So a
+    global batch is the same on any mesh."""
+    b = cfg.batch_size
+    params, n_sig = sample_batch(b, cfg.sim.prior, generator, device)
+    draws = draw_events((b,), generator, device)
+    real = None
+    if mixes_real_noise(cfg.sim, bank):
+        real = draw_real((b,), generator, device, bank)
+    params, n_sig, draws, real = shard_batch(mesh, (params, n_sig, draws,
+                                                    real))
+    return simulate_batch(params.shape[0], cfg.sim, device=device,
+                          params=params, n_sig=n_sig, draws=draws,
+                          bank=bank, real_draws=real)
+
+
+def make_train_step(cfg: TrainConfig, bank: Optional[NoiseBank] = None,
+                    mesh=None):
     """step(state, generator) -> metrics: simulate a batch of
     cfg.batch_size events from `generator` on the model's device (mixing in
-    `bank`'s real noise with cfg.sim.real_noise_prob), then train_step."""
+    `bank`'s real noise with cfg.sim.real_noise_prob), then train_step.
+
+    With a DeviceMesh (parallel/mesh.py), each rank simulates and trains
+    its rows along "data" of the same global batch (`simulate_shard`;
+    every rank passes a generator in the same state) and the gradients are
+    summed over "data": the update and the metrics are those of the
+    unsharded step on the global batch, identical on every rank."""
+    group = None if mesh is None else mesh.get_group("data")
+
     def step(state: TrainState, generator: torch.Generator):
-        batch = simulate_batch(cfg.batch_size, cfg.sim,
-                               device=_device(state), generator=generator,
-                               bank=bank)
-        return train_step(state, batch)
+        dev = _device(state)
+        if mesh is None:
+            batch = simulate_batch(cfg.batch_size, cfg.sim, device=dev,
+                                   generator=generator, bank=bank)
+        else:
+            batch = simulate_shard(cfg, mesh, dev, generator, bank)
+        return train_step(state, batch, group)
     return step
 
 
 def make_train_epoch(cfg: TrainConfig, n_steps: int,
-                     bank: Optional[NoiseBank] = None):
+                     bank: Optional[NoiseBank] = None, mesh=None):
     """epoch(state, seed, epoch) -> mean metrics of n_steps steps (nll,
     grad_norm, the component norms as means, last_nll); step i draws from a
-    generator seeded by step_seed(seed, epoch, i), with `bank` as in
-    make_train_step."""
-    step_fn = make_train_step(cfg, bank)
+    generator seeded by step_seed(seed, epoch, i), with `bank` and `mesh`
+    as in make_train_step."""
+    step_fn = make_train_step(cfg, bank, mesh)
 
     def epoch_fn(state: TrainState, seed: int, epoch: int) -> dict:
         dev = _device(state)

@@ -10,9 +10,12 @@ request on an injection, importance-corrects it through one tempered stage
 (the SMC sweep included) and takes one train step of the flagship's
 TrainConfig at batch 2, and another on a batch of the flagship's SimConfig
 simulated with a synthetic noise bank; it serves long_bns_v4 on its stored
-trigger grid and long_bns_v1, and trains a tiny long-BNS model for a step
-with tools/train_long_bns.py; it reads configs/npe_r6.yaml and exports the
-flagship (packb) and loads the export back (CheckpointManager.load_release).
+trigger grid and long_bns_v1, trains a tiny long-BNS model for a step
+with tools/train_long_bns.py, builds a v3 grid and releases the run with
+tools/release_long_bns.py; it takes one data-parallel step of the
+flagship on a one-rank gloo group (parallel/mesh.py); it reads
+configs/npe_r6.yaml and exports the flagship (packb) and loads the export
+back (CheckpointManager.load_release).
 chip_smoke.py without a GPU exits
 non-zero, fast, with no result line. A scan of the sources checks what
 they import: h5py, gwpy, gwosc, matplotlib, bilby and pandas only inside
@@ -135,6 +138,20 @@ with tempfile.TemporaryDirectory() as tmp:
         ["--device", "cpu", "--outdir", tmp, "--steps", "1", "--batch", "2",
          "--d-model", "16", "--n-layers", "1", "--n-heads", "2",
          "--cal-events", "2", "--cal-post", "4"])
+    # the v3 front end's grid, and the run released as flax writes it
+    from posteriflow_torch.tools import release_long_bns
+    chirp_L = lb.build_chirp_token_grid(duration=16.0, f_hi=256.0)["L"]
+    rel_rc = release_long_bns.main(["--run", tmp, "--out", tmp + "/rel",
+                                    "--report", tmp + "/none"])
+# the process grid: a one-rank gloo group and one data-parallel step
+import torch.distributed
+from posteriflow_torch.parallel import init_distributed, make_mesh
+from posteriflow_torch.train.trainer import make_train_step
+with tempfile.TemporaryDirectory() as tmp:
+    world = init_distributed(f"file://{tmp}/rendezvous", 1, 0, device="cpu")
+    dp = make_train_step(cfg, mesh=make_mesh())(
+        state, torch.Generator().manual_seed(5))
+    torch.distributed.destroy_process_group()
 # the release path: the YAML config, and the flagship exported and read back
 from pathlib import Path
 from posteriflow_torch.train.checkpoints import (CheckpointManager,
@@ -175,7 +192,9 @@ print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                   "long_bns": [lbgrid["config"]["kind"], lbgrid["n_tok"],
                                bool(np.isfinite(lb_nll)),
                                list(lb_draws.shape),
-                               bool(np.isfinite(v1_nll)), len(lb_hist)],
+                               bool(np.isfinite(v1_nll)), len(lb_hist),
+                               chirp_L, rel_rc],
+                  "mesh": [world, bool(torch.isfinite(dp["nll"]))],
                   "export": export, "loaded": loaded}))
 """
 
@@ -221,7 +240,8 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
         "tools.export_release", "utils.noise_marginalization",
         "tools.calibrate_priority_net", "tools.priority_fusion_bound",
         "tools.make_anchors", "tools.anchor_convergence",
-        "tools.evidence_validation")}
+        "tools.evidence_validation", "parallel", "parallel.mesh",
+        "tools.dryrun_multichip", "tools.release_long_bns")}
     assert expected <= set(out["modules"])
     assert out["shape"] == [64, 15] and out["finite"]
     assert out["verdict"] in ("HIGH", "MEDIUM", "LOW") and out["gate"]
@@ -232,7 +252,9 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
     assert out["importance"] == [[32, 15], 2, 1, True]
     assert out["ranking"] == [[0, 1], True]
     assert out["decompose"] == [1, True]
-    assert out["long_bns"] == ["trigger", 168, True, [2, 16, 11], True, 1]
+    assert out["long_bns"] == ["trigger", 168, True, [2, 16, 11], True, 1,
+                               2560, 0]
+    assert out["mesh"] == [1, True]
     assert out["export"] == [True, True, True]
     assert out["loaded"] == []
 

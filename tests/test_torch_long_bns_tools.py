@@ -164,11 +164,32 @@ def test_train_resume_and_scan(tiny_run, tmp_path):
     (["--tokens", "v3"], "item 4"), (["--mesh", "2"], "item 5"),
     (["--prng", "rbg"], "item 3")])
 def test_train_refusals(flags, item, tmp_path, capsys):
-    """What is not ported raises an error that names its ROADMAP item."""
-    with pytest.raises(SystemExit) as e:
-        tool.run_training(TINY + ["--outdir", str(tmp_path)] + flags)
-    assert e.value.code == 2
-    assert item in capsys.readouterr().err
+    """The flags of ROADMAP §1 items 4 and 5 train: --tokens v3 on the
+    chirp front end (its "chirp" tokens config recorded), --mesh 2 through
+    the sequence-parallel loss on two gloo ranks that the tool spawns
+    (rank 0's history, "mesh": 2 recorded, the first step's NLL that of
+    the unsharded run). --prng, which the port does not take, raises an
+    error that names its item."""
+    argv = TINY + ["--outdir", str(tmp_path / "run"), "--steps", "1"]
+    if item == "item 3":
+        with pytest.raises(SystemExit) as e:
+            tool.run_training(argv + flags)
+        assert e.value.code == 2
+        assert item in capsys.readouterr().err
+        return
+    if item == "item 4":
+        argv += ["--duration", "16", "--f-hi", "256"]
+    hist, cal, _ = tool.run_training(argv + flags)
+    assert (tmp_path / "run" / "params.msgpack").is_file()
+    if item == "item 4":
+        assert cal["config"]["tokens"]["kind"] == "chirp"
+        assert np.isfinite(hist[0]["train_nll"])
+        return
+    assert cal["config"]["mesh"] == 2
+    ref, _, _ = tool.run_training(TINY + ["--outdir", str(tmp_path / "ref"),
+                                          "--steps", "1"])
+    assert abs(hist[0]["train_nll"] - ref[0]["train_nll"]) <= \
+        2e-5 * abs(ref[0]["train_nll"])
 
 
 def test_validate_tiny_run_fails_gates(tiny_run, tmp_path):
@@ -214,7 +235,7 @@ def test_validate_release_v4_passes(tmp_path):
 def test_validate_v1_and_refusals(tmp_path):
     """long_bns_v1 takes the v1 gates (shuffle ΔNLL, no mc_sharpen); a v4
     run directory whose tokens config has no stored grid and no grid.npz
-    raises; a v3 (chirp) config names its ROADMAP item."""
+    raises; a v3 (chirp) run loads, its grid rebuilt from its config."""
     code, report, _ = val.run(
         ["--model", str(V1_RELEASE), "--device", "cpu", "--n-events", "2",
          "--chunk", "2", "--n-post", "8", "--out", str(tmp_path / "v1")])
@@ -231,7 +252,13 @@ def test_validate_v1_and_refusals(tmp_path):
     shutil.copy(V4_RELEASE / "params.msgpack", bad / "params.msgpack")
     with pytest.raises(FileNotFoundError, match="no stored trigger grid"):
         load_long_bns(bad, device="cpu")
-    cal["config"]["tokens"] = {"kind": "chirp"}
+    chirp = tlb.build_chirp_token_grid(duration=16.0, f_hi=256.0)["config"]
+    enc = {"d_model": 16, "n_layers": 1, "n_heads": 2, "patch": 4}
+    cal["config"].update(tokens=chirp, enc=enc, flow={})
     (bad / "calibration.json").write_text(json.dumps(cal))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        load_long_bns(bad, device="cpu")
+    (bad / "params.msgpack").unlink()
+    torch.save({"model": tlb.LongBNSNPE(enc=enc, n_feat=11).state_dict()},
+               bad / "state.pt")
+    model, _, grid = load_long_bns(bad, device="cpu")
+    assert grid["config"] == chirp
+    assert model.encoder.embed.in_features == 4 * 11

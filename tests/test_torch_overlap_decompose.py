@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch_overlap_helpers import one_torch_thread  # noqa: F401
 from torch_is_helpers import BBH, TINY, TRUTH, engines
 
@@ -41,6 +42,7 @@ from posteriflow_torch.core.pipeline import AHSDPipeline
 from posteriflow_torch.core.pod import make_batched_decompose
 from posteriflow_torch.core.subtractor import AdaptiveSubtractor
 from posteriflow_torch.evaluation import benchmarks as tbench
+from posteriflow_torch.parallel.mesh import init_distributed, make_mesh
 from posteriflow_torch.inference.preprocessing import (PreparedData,
                                                        prepare_simulated)
 from posteriflow_torch.physics.simulator import simulate_batch
@@ -116,10 +118,12 @@ def test_decompose_matches_jax(tiny, threshold):
         ref["final_residual_power_ratio"], rel=1e-3)
 
 
-def test_batched_decompose_matches_jax(tiny):
+def test_batched_decompose_matches_jax(tiny, tmp_path):
     """Threshold 0.01: the gate accepts two events at stage 0 (quality
     0.018) and rejects the others (-0.14 to 0.00), whose stage 1 is then
-    masked inactive."""
+    masked inactive. The same call with mesh= on a one-rank group returns
+    the same arrays bit for bit (tests/test_torch_dist_train.py holds two
+    ranks against one)."""
     jeng, teng = tiny
     cfg = train_cfg_from_dict(_cfg_to_dict(TINY))
     ev = simulate_batch(4, cfg.sim, device="cpu",
@@ -143,8 +147,16 @@ def test_batched_decompose_matches_jax(tiny):
     assert ok, err
     for k in ("alpha", "quality", "fit_snr", "final_residual"):
         assert _close(got[k], ref[k]), k
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
-        make_batched_decompose(cfg, mesh=object())
+    # the sharded form on a one-rank gloo group: bit-equal to the above
+    assert init_distributed(f"file://{tmp_path}/rendezvous", 1, 0,
+                            device="cpu") == 1
+    try:
+        sharded = make_batched_decompose(cfg, mesh=make_mesh(), **kw)(
+            teng.model, strain, bands, z=z)
+    finally:
+        dist.destroy_process_group()
+    for k, v in got.items():
+        np.testing.assert_array_equal(sharded[k].numpy(), v, err_msg=k)
 
 
 def test_baselines_order_and_remove_power_as_jax():

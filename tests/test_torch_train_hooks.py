@@ -146,7 +146,8 @@ def test_sample_and_nll_are_encode_then_from_context():
 
 def test_train_npe_from_yaml_with_overrides_and_a_trace(tmp_path):
     """A YAML config, the model and simulator overrides of the JAX script,
-    and a torch.profiler trace of the first epoch."""
+    and a torch.profiler trace of the first epoch; --mesh (ROADMAP §1
+    item 5) trains the same config data-parallel."""
     from posteriflow_torch.tools import train_npe
     cfg = dataclasses.replace(TINY, warmup_steps=1)
     cfg_path = tmp_path / "tiny.yaml"
@@ -166,10 +167,15 @@ def test_train_npe_from_yaml_with_overrides_and_a_trace(tmp_path):
         saved, npe=cfg.npe, sim=cfg.sim, total_steps=cfg.total_steps) == cfg
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert len(trace["traceEvents"]) > 100
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train_npe.main(["--config", str(cfg_path), "--outdir",
-                        str(tmp_path / "m"), "--mesh", "--device", "cpu"])
-    assert not Path(tmp_path / "m").exists()
+    # --mesh without a launcher: one gloo rank on the CPU, spawned by the
+    # tool, whose rank 0 writes the run
+    hist_m = train_npe.main(["--config", str(cfg_path), "--outdir",
+                             str(tmp_path / "m"), "--epochs", "1",
+                             "--steps-per-epoch", "2", "--mesh",
+                             "--device", "cpu"])
+    assert [h["epoch"] for h in hist_m] == [1]
+    assert hist_m[0]["lr_step"] == 2
+    assert (Path(tmp_path / "m") / "ckpt" / "best" / "state.pt").exists()
 
 
 @pytest.mark.parametrize("device, activity", [("cpu", "CPU"),
