@@ -4,7 +4,9 @@ decompose overlapping signals with the 15-D flagship release, serve,
 validate and train the long-BNS models, train from a YAML config, export
 a release the JAX package reads and anchor it against a nested sampler,
 train data-parallel and sequence-parallel over a process group, and
-train, validate and release the v3 long-BNS front end, on NVIDIA GPUs
+train, validate and release the v3 long-BNS front end, and run the
+physics checks, waveform entry points, SVD basis, patch transformer,
+analysis tools and examples, on NVIDIA GPUs
 (one is enough) through the
 hand-written CUDA RQS kernels (csrc/rqs.cu: rqs_tile, a
 TMA bulk-copy ring of row tiles, one thread per spline, the conditioner's
@@ -244,6 +246,30 @@ Phases (any failure exits non-zero and prints no result line):
       (w4)'s card-against-CPU bars; (y2)'s fit(mesh=) and (y4)'s
       train_long_bns --mesh 2 there, held as at world 1 (one run written,
       the same history on both ranks, the launches).
+  (z) the last slice's modules and tools, each held card against CPU:
+      (z1) tools/validate_pipeline_physics, its nine checks passing and
+      checks 3, 4, 8, 9 within 1e-4 relative of the CPU's; (z2) the five
+      polarization entry points at the flagship's grid, 64 signals each
+      (BNS, NSBH, BBH), moduli within 1e-4 of the peak and values within
+      the phase-rounding bar of the CPU tests; (z3) build_svd_basis at its
+      defaults (512 waveforms, 64 vectors) and project_onto_basis; (z4)
+      LightweightTransformerEncoder at its defaults on [64, 3, 16384];
+      (z5) tools/generate_dataset --n 512 --batch 256 (the HDF5 write where
+      h5py is installed) and its components; (z6) tools/real_noise_test on
+      the flagship at 256 events; (z7) tools/precession_robustness at its
+      defaults, the noise-free SNRs within 1e-4 relative of
+      reports/precession_robustness.json, verdicts, OOD and max |z|
+      printed beside JAX's; (z8) tools/probe_context --n-events 1024;
+      (z9) tools/frozen_context_heads at batch 64, 40 steps a head: 480 +
+      480 launches of rqs_tile<8> / rqs_grad<8> at [64, 7]; (z10)
+      tools/benchmark_real_events --events GW150914 with the nested run cut
+      to nlive 32, maxiter 12; (z11) examples/explore_data and
+      examples/analyze_results (with the importance correction) computed
+      on the card; (z12) rqs_tile bit-equal at the new shapes (x [64, 7] at
+      K = 8, [4096, 5], [2000, 7], [32768, 7] and [1280, 7] at K = 16) and
+      rqs_grad<8>
+      at [64, 7], timed beside their bounds. Every spline launch of a new
+      path is counted by shape and the plain spline never runs.
   (e) the kernel table and the device as JSON lines; the last line is
       {"ok": true, "device": {...}}.
 Every time printed names the card and its power limit.
@@ -1254,8 +1280,10 @@ def kernel_device_ms(torch, fn, name: str, reps: int = 20, tries: int = 3):
     CUPTI). A small launch is shorter than the host's time to issue it,
     which CUDA events over back-to-back launches measure instead. On the
     card a session now and then reads no kernel at all (once at phase l,
-    before any trace, once after phase x2's): such a session runs again,
-    up to `tries` times, and then this raises."""
+    before any trace, once after phase x2's, three times in a row at phase
+    y5 once): such a session runs again, up to `tries` times, and then the
+    time is reported as not measured (None), as without CUPTI; every
+    caller then prints "not measured" and keeps the CUDA-event time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1273,8 +1301,9 @@ def kernel_device_ms(torch, fn, name: str, reps: int = 20, tries: int = 3):
         count = sum(e.count for e in evs)
         if count:
             return sum(e.self_device_time_total for e in evs) / count / 1e3
-    raise RuntimeError(f"the profiler read no {name or 'kernel'} launch in "
-                       f"{tries} sessions")
+    print(f"(profiler) no {name or 'kernel'} launch read in {tries} "
+          f"sessions: device time not measured")
+    return None
 
 
 def grad_inputs(torch, plain, n: int, k: int, seed: int, d: int = D_TR):
@@ -4805,6 +4834,758 @@ def phase_v3(torch, plain, rqs_cuda, card, tmp):
             "times": times, "grad": g}
 
 
+# ── (z) the remaining modules and tools ─────────────────────────────────
+# Every piece on the card, and held card against CPU on the port: float32
+# paths within Z_TOL of the largest entry; a waveform's complex values
+# within the larger of 2e-3 of its peak and Z_PSI_STEPS float32 steps of
+# its largest in-band |Ψ| (the phase rounding the CPU tests allow against
+# JAX: a BNS reaches |Ψ| = 11,473 rad, whose step is 9.8e-4 rad), its
+# moduli within Z_TOL of the peak; the flagship's contexts in float32
+# within Z_TOL of the largest and its batch NLLs in float32 within (m)'s
+# TRAIN_LOSS_TOL (as released, with bfloat16 matmuls, the card and the
+# CPU round differently: contexts 5.2e-2 of the largest apart, 16 events'
+# NLLs 0.03-0.11 nats on an NVIDIA H100 80GB HBM3; printed); a bfloat16
+# flow head's NLL within Z_HEAD_TOL nats (that test's log q bar);
+# the SVD's singular values within Z_SVD_REL relative, each vector
+# |<b_card, b_cpu>| >= Z_SVD_OVERLAP where its singular value stands more
+# than 1% from its neighbours, the leading projector within Z_SVD_PROJ.
+# precession_robustness's noise-free SNRs within Z_PREC_REL of
+# reports/precession_robustness.json; benchmark_real_events' nested run
+# is cut to Z_BRE_NLIVE live points and Z_BRE_MAXITER iterations (its
+# defaults 200 and 3000 take minutes of likelihood calls).
+Z_TOL = 1e-4
+Z_PSI_STEPS = 16
+Z_HEAD_TOL = 1e-1
+Z_SVD_REL, Z_SVD_OVERLAP, Z_SVD_PROJ = 2e-3, 0.999, 1e-3
+Z_PREC_REL = 1e-4
+Z_POL_SIGNALS = 64
+Z_LTE_BATCH = 64
+Z_DATASET = (512, 256)                   # generate_dataset --n, --batch
+Z_PROBE_EVENTS = 1024
+Z_HEAD_STEPS, Z_HEAD_BATCH = 40, 64
+Z_BRE_NLIVE, Z_BRE_MAXITER = 32, 12
+Z_HOLD_EVENTS = 16                       # events of a CPU re-run
+PREC_RELEASE = "model_release/npe_r3_best"
+PREC_REPORT = "reports/precession_robustness.json"
+# the new kernel shapes: (rows, D, K, inverse); frozen_context_heads' flows
+# transform the flagship's 15 parameters less their 8 identity features;
+# precession_robustness samples npe_r3_best's 11 (6 identity) at 4096
+# draws, benchmark_real_events the flagship's at 2000; real_noise_test's
+# diagnostics sample 256 events x 128 draws and its batch NLLs score 256
+# events x 5 slots
+Z_SHAPES = ((Z_HEAD_BATCH, 7, 8, False), (4096, 5, K_BINS, True),
+            (2000, 7, K_BINS, True), (256 * 128, 7, K_BINS, True),
+            (256 * 5, 7, K_BINS, False))
+
+
+def _z_path(torch, plain, rqs_cuda, label, fn):
+    """fn() with the launch counters zeroed before and read after, the
+    plain spline counted and each launch's (rows, D, K, inverse) recorded
+    -> (fn's result, (rqs_tile, rqs_grad) launches, {shape: count})."""
+    from collections import Counter
+    shapes = Counter()
+    launch, grad = rqs_cuda.KERNEL.launch, rqs_cuda.GRAD_KERNEL._launch
+
+    def rec_launch(x, raw, num_bins, tail, inverse, bias=None):
+        shapes[(x.shape[0], x.shape[1], num_bins, bool(inverse))] += 1
+        return launch(x, raw, num_bins, tail, inverse, bias)
+
+    def rec_grad(x, raw, g_out, g_ld, num_bins, tail, bias):
+        shapes[(x.shape[0], x.shape[1], num_bins, "grad")] += 1
+        return grad(x, raw, g_out, g_ld, num_bins, tail, bias)
+    counts, restore = _count_plain(torch, plain)
+    rqs_cuda.KERNEL.launch, rqs_cuda.GRAD_KERNEL._launch = rec_launch, \
+        rec_grad
+    rqs_cuda.KERNEL.launches = rqs_cuda.GRAD_KERNEL.launches = 0
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        rqs_cuda.KERNEL.launch, rqs_cuda.GRAD_KERNEL._launch = launch, grad
+    n = (rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches)
+    print(f"(z) {label}: rqs_tile launches {n[0]}, rqs_grad {n[1]}; by "
+          f"(rows, D, K, direction) {dict(shapes)}; plain spline calls "
+          f"{counts}")
+    check(counts == {"forward": 0, "inverse": 0},
+          f"the plain spline ran on {label}: {counts}")
+    check(sum(shapes.values()) == sum(n),
+          f"{label}: the recorder saw {sum(shapes.values())} launches of "
+          f"{sum(n)}")
+    return out, n, dict(shapes)
+
+
+def _rel_max(got, ref) -> float:
+    """max |Δ| over the reference's largest |entry|."""
+    got = np.asarray(got, np.float64) if not np.iscomplexobj(got) else got
+    return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)),
+                                                 1e-30))
+
+
+def z_physics(torch, card, tmp):
+    """(z1) tools/validate_pipeline_physics on the card: the nine checks
+    pass; the deterministic ones (3, 4, 8, 9) card against CPU within
+    Z_TOL relative."""
+    from posteriflow_torch.tools import validate_pipeline_physics as vpp
+    t0 = time.perf_counter()
+    got = vpp.run(["--device", DEVICE, "--out", f"{tmp}/vpp.json"])
+    wall = time.perf_counter() - t0
+    ref = vpp.run(["--device", "cpu"])
+    print(f"(z1) validate_pipeline_physics [{card}]: passed "
+          f"{got['passed']} in {wall:.2f} s, backend {got['backend']!r}; "
+          + "; ".join(f"{c['check']} {'PASS' if c['passed'] else 'FAIL'} "
+                      f"{c['detail']}" for c in got["checks"]))
+    check(got["passed"] and len(got["checks"]) == 9,
+          f"physics validation failed on the card: {got['checks']}")
+    check(got["backend"] == f"cuda ({torch.cuda.get_device_name(0)})",
+          f"backend {got['backend']!r}")
+    worst = 0.0
+    for g, r in zip(got["checks"], ref["checks"]):
+        if g["check"] in ("inverse_distance_amplitude",
+                          "geometric_time_delays",
+                          "phenomd_inspiral_consistency",
+                          "phenomd_amplitude_peak"):
+            for k, v in r["detail"].items():
+                worst = max(worst, abs(g["detail"][k] - v) / abs(v))
+    print(f"(z1) the deterministic checks card vs CPU: max relative gap "
+          f"{worst:.2e} (tol {Z_TOL:g})")
+    check(worst <= Z_TOL, f"physics checks card vs CPU {worst}")
+    return {"seconds": wall}
+
+
+def _z_signals(n: int):
+    """n signals as columns (m1, m2, chi1, chi2, d_L, theta_jn, phase):
+    a quarter BNS, a quarter NSBH, half BBH."""
+    rng = np.random.default_rng(16)
+    k = n // 4
+    m1 = np.concatenate([rng.uniform(1.2, 2.2, k), rng.uniform(5, 15, k),
+                         rng.uniform(8, 90, n - 2 * k)])
+    m2 = np.concatenate([np.maximum(rng.uniform(0.7, 1.0, k) * m1[:k], 1.0),
+                         rng.uniform(1.2, 2.0, k),
+                         rng.uniform(0.2, 1.0, n - 2 * k) * m1[2 * k:]])
+    m2 = np.minimum(m2, m1)
+    cols = np.stack([m1, m2, rng.uniform(-0.5, 0.5, n),
+                     rng.uniform(-0.5, 0.5, n), rng.uniform(40, 1000, n),
+                     rng.uniform(0, np.pi, n), rng.uniform(0, 2 * np.pi, n)],
+                    axis=1).astype(np.float32)
+    return cols
+
+
+def _psi_bars(torch, cols) -> np.ndarray:
+    """[n] the complex-value bar of each signal, a share of its peak."""
+    from posteriflow_torch.physics.constants import FREQS
+    from posteriflow_torch.physics.waveforms.taylorf2 import \
+        taylorf2_amp_phase
+    f = torch.from_numpy(np.asarray(FREQS, np.float32))
+    c = [torch.from_numpy(cols[:, i:i + 1]) for i in (0, 1, 2, 3, 4, 6)]
+    _, psi = taylorf2_amp_phase(f, *c)
+    psi_max = psi[:, FREQS >= 20.0].abs().amax(dim=1).numpy()
+    return np.maximum(2e-3, Z_PSI_STEPS * np.spacing(
+        psi_max.astype(np.float32)))
+
+
+def _hold_complex(label, got, ref, bars):
+    """Per signal (rows of [n, ...]): moduli within Z_TOL of the peak,
+    values within bars[i] of the peak -> (worst modulus gap, worst
+    complex gap over the bar)."""
+    got = got.reshape(got.shape[0], -1)
+    ref = ref.reshape(ref.shape[0], -1)
+    peak = np.abs(ref).max(axis=1)
+    mod = np.max(np.abs(np.abs(got) - np.abs(ref)), axis=1) / peak
+    val = np.max(np.abs(got - ref), axis=1) / peak
+    check(np.all(mod <= Z_TOL), f"{label}: moduli card vs CPU {mod.max()}")
+    check(np.all(val <= bars), f"{label}: values card vs CPU "
+          f"{(val / bars).max()} of the bar")
+    return float(mod.max()), float((val / bars).max())
+
+
+def z_waveforms(torch, card):
+    """(z2) the five polarization entry points at the flagship's grid,
+    Z_POL_SIGNALS signals each, card against CPU; their times by CUDA
+    events."""
+    from posteriflow_torch.physics.constants import FREQS
+    from posteriflow_torch.physics.psd import default_network_asd
+    from posteriflow_torch.physics.waveforms import (
+        imr_stitch_polarizations, phenomd_matter_polarizations,
+        phenomd_polarizations, phenomp_polarizations)
+    from posteriflow_torch.physics.waveforms.precession import \
+        precessing_signal_white_fd
+    cols = _z_signals(Z_POL_SIGNALS)
+    bars = _psi_bars(torch, cols)
+    chi_p = np.random.default_rng(17).uniform(0.0, 0.6, Z_POL_SIGNALS)
+    out = {}
+    for name, fn in (("phenomd_polarizations", phenomd_polarizations),
+                     ("phenomd_matter_polarizations",
+                      phenomd_matter_polarizations),
+                     ("phenomp_polarizations", phenomp_polarizations),
+                     ("imr_stitch_polarizations", imr_stitch_polarizations)):
+        def run(dev, fn=fn, name=name):
+            f = torch.from_numpy(np.asarray(FREQS, np.float32)).to(dev)
+            c = [torch.from_numpy(cols[:, i:i + 1]).to(dev)
+                 for i in range(7)]
+            kw = ({"chi_p": torch.from_numpy(chi_p[:, None].astype(
+                np.float32)).to(dev)} if name == "phenomp_polarizations"
+                  else {})
+            with torch.no_grad():
+                return fn(f, *c, **kw)
+        card_hp, card_hc = run(DEVICE)
+        ms = cuda_time_ms(lambda: run(DEVICE), reps=5)
+        cpu_hp, cpu_hc = run("cpu")
+        gaps = [_hold_complex(name, card_h.cpu().numpy(), cpu_h.numpy(),
+                              bars)
+                for card_h, cpu_h in ((card_hp, cpu_hp), (card_hc, cpu_hc))]
+        out[name] = ms
+        print(f"(z2) {name} x {Z_POL_SIGNALS} [{card}]: {ms:.3f} ms a call "
+              f"(CUDA events); card vs CPU: moduli {max(g[0] for g in gaps):.2e}"
+              f" of the peak (tol {Z_TOL:g}), values "
+              f"{max(g[1] for g in gaps):.3f} of their bar")
+    asd = {dev: default_network_asd(device=dev) for dev in (DEVICE, "cpu")}
+    rng = np.random.default_rng(18)
+    params = np.stack([cols[:, 0], cols[:, 1], cols[:, 4],
+                       rng.uniform(0, 2 * np.pi, Z_POL_SIGNALS),
+                       rng.uniform(-1.4, 1.4, Z_POL_SIGNALS), cols[:, 5],
+                       rng.uniform(0, np.pi, Z_POL_SIGNALS), cols[:, 6],
+                       rng.uniform(-1.5, 1.5, Z_POL_SIGNALS), cols[:, 2],
+                       cols[:, 3]], axis=1).astype(np.float32)
+
+    def prec(dev):
+        with torch.no_grad():
+            return torch.stack([precessing_signal_white_fd(
+                torch.from_numpy(p).to(dev), float(c), asd[dev])
+                for p, c in zip(params, chi_p)])
+    got = prec(DEVICE)
+    ms = cuda_time_ms(lambda: prec(DEVICE), reps=2)
+    ref = prec("cpu").numpy()
+    got = got.cpu().numpy()
+    snr = np.sqrt(np.sum(np.abs(got) ** 2, axis=(1, 2)))
+    snr_ref = np.sqrt(np.sum(np.abs(ref) ** 2, axis=(1, 2)))
+    snr_gap = float(np.max(np.abs(snr - snr_ref) / snr_ref))
+    gaps = _hold_complex("precessing_signal_white_fd", got, ref, bars)
+    print(f"(z2) precessing_signal_white_fd x {Z_POL_SIGNALS} one at a time "
+          f"[{card}]: {ms:.3f} ms the 64; SNRs {snr.min():.2f}-"
+          f"{snr.max():.2f}, card vs CPU {snr_gap:.2e} relative (tol 1e-5), "
+          f"moduli {gaps[0]:.2e}, values {gaps[1]:.3f} of their bar")
+    check(snr_gap <= 1e-5, f"precessing SNR card vs CPU {snr_gap}")
+    out["precessing_signal_white_fd"] = ms
+    return out
+
+
+def z_svd(torch, card):
+    """(z3) build_svd_basis at its defaults (512 waveforms, 64 vectors) on
+    the card and on the CPU from the same draws; project_onto_basis."""
+    from posteriflow_torch.models import svd_basis as S
+    draws = S.draw_svd_inputs(generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    t0 = time.perf_counter()
+    b_card, s_card = S.build_svd_basis(
+        device=DEVICE, draws=S.SvdDraws(*[t.to(DEVICE) for t in draws]))
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        hw_ms = cuda_time_ms(lambda: S.svd_waveforms(
+            S.SvdDraws(*[t.to(DEVICE) for t in draws]),
+            S.asd_from_psd(S.aligo_psd(S.FREQS), device=DEVICE)), reps=2)
+    b_cpu, s_cpu = S.build_svd_basis(device="cpu", draws=draws)
+    s_gap = float(np.max(np.abs(s_card - s_cpu) / s_cpu))
+    gaps = np.minimum(np.abs(np.diff(s_cpu, prepend=np.inf)),
+                      np.abs(np.diff(s_cpu, append=-np.inf))) / s_cpu
+    sep = gaps > 0.01
+    overlap = np.abs(np.sum(np.conj(b_cpu) * b_card, axis=1))
+    pj, pc = b_cpu.T @ np.conj(b_cpu), b_card.T @ np.conj(b_card)
+    proj = float(np.linalg.norm(pj - pc) / np.linalg.norm(pj))
+    h = torch.from_numpy(np.random.default_rng(19).normal(
+        size=(8, b_cpu.shape[1])).astype(np.float32)).to(torch.complex64)
+    c_card = S.project_onto_basis(h.to(DEVICE), torch.from_numpy(b_card)
+                                  .to(DEVICE)).cpu().numpy()
+    c_cpu = S.project_onto_basis(h, torch.from_numpy(b_card)).numpy()
+    c_gap = _rel_max(c_card, c_cpu)
+    print(f"(z3) build_svd_basis 512 x 64 [{card}]: {wall:.2f} s (the "
+          f"waveform stack {hw_ms:.2f} ms by CUDA events, the rest the "
+          f"host's complex128 SVD); singular values {s_card[0]:.4f} .. "
+          f"{s_card[-1]:.4f}, card vs CPU {s_gap:.2e} relative (tol "
+          f"{Z_SVD_REL:g}); {int(sep.sum())} separated vectors, least "
+          f"overlap {overlap[sep].min():.6f} (tol {Z_SVD_OVERLAP}); "
+          f"projector {proj:.2e} (tol {Z_SVD_PROJ:g}); project_onto_basis "
+          f"{c_gap:.2e} (tol {Z_TOL:g})")
+    check(s_gap <= Z_SVD_REL, f"SVD singular values card vs CPU {s_gap}")
+    check(np.all(overlap[sep] >= Z_SVD_OVERLAP), "SVD vectors card vs CPU")
+    check(proj <= Z_SVD_PROJ, f"SVD projector card vs CPU {proj}")
+    check(c_gap <= Z_TOL, f"project_onto_basis card vs CPU {c_gap}")
+    return {"seconds": wall, "stack_ms": hw_ms}
+
+
+def z_transformer(torch, card):
+    """(z4) LightweightTransformerEncoder at its defaults on a
+    [Z_LTE_BATCH, 3, 16384] batch, card against CPU."""
+    from posteriflow_torch.models.transformer_encoder import \
+        LightweightTransformerEncoder
+    torch.manual_seed(0)
+    model = LightweightTransformerEncoder().eval()
+    x = torch.from_numpy(np.random.default_rng(20).normal(
+        0, 1.0, (Z_LTE_BATCH, 3, 16384)).astype(np.float32))
+    with torch.no_grad():
+        ref = model(x).numpy()
+        model.to(DEVICE)
+        xd = x.to(DEVICE)
+        got = model(xd).cpu().numpy()
+        ms = cuda_time_ms(lambda: model(xd), reps=5)
+    gap = _rel_max(got, ref)
+    print(f"(z4) LightweightTransformerEncoder [{Z_LTE_BATCH}, 3, 16384] "
+          f"[{card}]: {ms:.3f} ms a call (CUDA events), out "
+          f"{tuple(got.shape)}, card vs CPU {gap:.2e} of the largest (tol "
+          f"{Z_TOL:g})")
+    check(gap <= Z_TOL, f"LightweightTransformerEncoder card vs CPU {gap}")
+    return {"ms": ms}
+
+
+def z_dataset(torch, card, tmp):
+    """(z5) tools/generate_dataset --n 512 --batch 256 (the HDF5 write only
+    where h5py is installed); a batch's components card against the CPU
+    from the card's parameters."""
+    import importlib.util
+
+    from posteriflow_torch.physics.simulator import design_asd
+    from posteriflow_torch.tools import generate_dataset as G
+    n, batch = Z_DATASET
+    write = importlib.util.find_spec("h5py") is not None
+    t0 = time.perf_counter()
+    if write:
+        stats = G.main(["--out", f"{tmp}/ds.h5", "--n", str(n), "--batch",
+                        str(batch), "--device", DEVICE])
+    else:
+        stats = {"n_signals_dist": {}, "snr_sum": 0.0, "generated": 0}
+        for rec in G.generate(G.sim_config(), n, batch, 0, False, DEVICE):
+            G.tally(stats, rec)
+        stats = G.finish(stats, time.perf_counter() - t0)
+    wall = time.perf_counter() - t0
+    print(f"(z5) generate_dataset --n {n} --batch {batch} [{card}]: "
+          + ("written to HDF5" if write else "generated; h5py is not "
+             "installed here, so no HDF5 write ran")
+          + f" in {wall:.2f} s: {stats}")
+    check(stats["generated"] == n and math.isfinite(stats["mean_net_snr"]),
+          f"generate_dataset: {stats}")
+    rec = next(G.generate(G.sim_config(), 8, 8, 1, True, DEVICE))
+    params = torch.from_numpy(rec["params"])
+    n_sig = torch.from_numpy(rec["n_sig"]).long()
+    ref = G.components(params, n_sig, design_asd("cpu")).float().numpy()
+    got = rec["signals"].astype(np.float32)
+    peak = np.abs(ref).max(axis=(2, 3), keepdims=True) + 1e-30
+    gap = float(np.max(np.abs(got - ref) / peak))
+    print(f"(z5) --components on 8 events card vs CPU (float16 storage): "
+          f"{gap:.2e} of each slot's peak (tol 3e-3)")
+    check(gap <= 3e-3, f"dataset components card vs CPU {gap}")
+    return {"seconds": wall, "written": write}
+
+
+def z_real_noise(torch, plain, rqs_cuda, card, cpu_model, tmp):
+    """(z6) tools/real_noise_test on the flagship at its 256 events and a
+    synthetic bank; the Gaussian and real-noise NLLs of Z_HOLD_EVENTS of
+    its events card against CPU."""
+    from posteriflow_torch.inference.pipeline import load_model
+    from posteriflow_torch.tools import real_noise_test
+    from posteriflow_torch.train.trainer import make_eval_nll
+    t0 = time.perf_counter()
+    (report, batches), n, shapes = _z_path(
+        torch, plain, rqs_cuda, "real_noise_test on npe_r7_best",
+        lambda: real_noise_test.run(["--ckpt", RELEASE, "--device", DEVICE,
+                                     "--out", f"{tmp}/rn.json"]))
+    wall = time.perf_counter() - t0
+    cfg = _flagship_cfg()
+    eval_nll = make_eval_nll(cfg)
+    card_model = load_model(RELEASE, device=DEVICE).model
+    f32 = {dev: _f32_model(torch, cfg, dev) for dev in (DEVICE, "cpu")}
+    gaps, bf16 = {}, {}
+    for name, b in batches.items():
+        part = type(b)(*[t[:Z_HOLD_EVENTS] for t in b])
+        ref = eval_nll(f32["cpu"], _to(part, "cpu"))
+        gaps[name] = (abs(eval_nll(f32[DEVICE], part) - ref)
+                      / max(1.0, abs(ref)))
+        ref16 = eval_nll(cpu_model, _to(part, "cpu"))
+        bf16[name] = abs(eval_nll(card_model, part) - ref16)
+    print(f"(z6) real_noise_test [{card}]: {wall:.2f} s; Gaussian NLL "
+          f"{report['gaussian_nll']:.4f}, real {report['real_nll']:.4f}, gap "
+          f"{report['nll_gap']:+.4f} (gate < 3: "
+          f"{report['gap_within_gate']}); dist_corr "
+          f"{report['gaussian_dist_corr']:.3f} / "
+          f"{report['real_dist_corr']:.3f}, cov90 "
+          f"{report['gaussian_cov90']:.3f} / {report['real_cov90']:.3f}; "
+          f"{Z_HOLD_EVENTS} events' NLL card vs CPU in float32 {gaps} "
+          f"relative (tol {TRAIN_LOSS_TOL:g}, (m)'s loss bar); as released "
+          f"(bfloat16 matmuls) {bf16} nats, printed")
+    check(all(math.isfinite(report[k]) for k in ("gaussian_nll", "real_nll")),
+          "real_noise_test NLL not finite")
+    check(max(gaps.values()) <= TRAIN_LOSS_TOL,
+          f"real_noise_test card vs CPU {gaps}")
+    check(n[1] == 0 and n[0] > 0, f"real_noise_test launches {n}")
+    return {"seconds": wall, "launches": n, "shapes": shapes,
+            "report": report}
+
+
+def z_precession(torch, plain, rqs_cuda, card, tmp):
+    """(z7) tools/precession_robustness at its defaults (npe_r3_best, chi_p
+    0, 0.3, 0.6, 4096 draws): the noise-free SNRs against the JAX report,
+    the verdicts, OOD percentiles and max |z| printed beside JAX's; the
+    strain card against CPU on the same noise."""
+    from posteriflow_torch import PARAM_NAMES
+    from posteriflow_torch.physics.psd import default_network_asd
+    from posteriflow_torch.tools import precession_robustness as P
+    with open(PREC_REPORT) as f:
+        ref = json.load(f)
+    t0 = time.perf_counter()
+    got, n, shapes = _z_path(
+        torch, plain, rqs_cuda, "precession_robustness on npe_r3_best",
+        lambda: P.main(["--device", DEVICE, "--out", f"{tmp}/prec.json"]))
+    wall = time.perf_counter() - t0
+    rel = [abs(g["injected_snr"] - r["injected_snr"]) / r["injected_snr"]
+           for g, r in zip(got["cases"], ref["cases"])]
+    for g, r in zip(got["cases"], ref["cases"]):
+        print(f"(z7) chi_p {g['chi_p']}: injected SNR {g['injected_snr']:.4f}"
+              f" (JAX {r['injected_snr']:.4f}); verdict {g['verdict']} (JAX "
+              f"{r['verdict']}), OOD {g['ood_percentile']:.1f}% (JAX "
+              f"{r['ood_percentile']:.1f}%), max|z| {g['max_abs_z']:.2f} (JAX "
+              f"{r['max_abs_z']:.2f}), refine {g['refine']} (JAX "
+              f"{r['refine']}), {g['wall_s']} s")
+    theta = torch.tensor([P._TRUTH[k] for k in PARAM_NAMES],
+                         dtype=torch.float32)
+    noise = torch.from_numpy(np.random.default_rng(21).normal(
+        size=(3, 16384)).astype(np.float32))
+    worst = 0.0
+    for chi_p in (0.0, 0.3, 0.6):
+        with torch.no_grad():
+            s_card, snr_card = P.make_strain(
+                theta.to(DEVICE), chi_p, default_network_asd(device=DEVICE),
+                noise.to(DEVICE))
+            s_cpu, snr_cpu = P.make_strain(
+                theta, chi_p, default_network_asd(device="cpu"), noise)
+        sig_peak = float((s_cpu - noise).abs().max())
+        gap = float((s_card.cpu() - s_cpu).abs().max())
+        worst = max(worst, gap / sig_peak)
+        check(abs(snr_card - snr_cpu) <= 1e-5 * snr_cpu,
+              f"precession SNR card vs CPU {snr_card} {snr_cpu}")
+    print(f"(z7) precession_robustness [{card}]: {wall:.2f} s; SNRs vs the "
+          f"JAX report {max(rel):.2e} relative (tol {Z_PREC_REL:g}); the "
+          f"strain card vs CPU {worst:.2e} of the signal's peak (tol 2e-3)")
+    check(max(rel) <= Z_PREC_REL, f"injected SNRs against the report {rel}")
+    check(worst <= 2e-3, f"precession strain card vs CPU {worst}")
+    check(n == (3 * 10, 0), f"precession_robustness launches {n}")
+    return {"seconds": wall, "launches": n, "shapes": shapes}
+
+
+def z_probe(torch, plain, rqs_cuda, card, cpu_model, tmp):
+    """(z8) tools/probe_context --n-events 1024 on the flagship; the first
+    batch's contexts of Z_HOLD_EVENTS events card against CPU."""
+    from posteriflow_torch.inference.pipeline import load_model
+    from posteriflow_torch.physics.simulator import simulate_batch
+    from posteriflow_torch.tools import probe_context
+    t0 = time.perf_counter()
+    report, n, _ = _z_path(
+        torch, plain, rqs_cuda, "probe_context",
+        lambda: probe_context.main(["--ckpt", RELEASE, "--device", DEVICE,
+                                    "--n-events", str(Z_PROBE_EVENTS),
+                                    "--out", f"{tmp}/probes.json"]))
+    wall = time.perf_counter() - t0
+    cfg = _flagship_cfg()
+    card_model = load_model(RELEASE, device=DEVICE).model
+    f32 = {dev: _f32_model(torch, cfg, dev) for dev in (DEVICE, "cpu")}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    with torch.no_grad():
+        b = simulate_batch(probe_context.BATCH, cfg.sim, device=DEVICE,
+                           generator=gen)
+        strain = b.strain[:Z_HOLD_EVENTS]
+        bands = (b.asd_bands[:Z_HOLD_EVENTS] if cfg.npe.uses_asd_bands
+                 else None)
+        cpu_in = (strain.cpu(), None if bands is None else bands.cpu())
+        got = card_model.encode(strain, bands).float().cpu().numpy()
+        ref = cpu_model.encode(*cpu_in).float().numpy()
+        got32 = f32[DEVICE].encode(strain, bands).cpu().numpy()
+        ref32 = f32["cpu"].encode(*cpu_in).numpy()
+    gap, gap32 = _rel_max(got, ref), _rel_max(got32, ref32)
+    print(f"(z8) probe_context --n-events {Z_PROBE_EVENTS} [{card}]: "
+          f"{wall:.2f} s, {report['n_events']} live events; R² "
+          + ", ".join(f"{k} {v:+.3f}" for k, v in report["probes"].items())
+          + f"; context std {report['context_std_across_events']:.4f}; "
+          f"contexts card vs CPU in float32 {gap32:.2e} of the largest (tol "
+          f"{Z_TOL:g}); as released (bfloat16 matmuls) {gap:.2e}, printed")
+    check(all(math.isfinite(v) for v in report["probes"].values()),
+          "probe R² not finite")
+    check(gap32 <= Z_TOL, f"contexts card vs CPU in float32 {gap32}")
+    check(n == (0, 0), f"probe_context launched spline kernels {n}")
+    return {"seconds": wall}
+
+
+def _f32_model(torch, cfg, dev):
+    """The flagship's weights in a LeanNPE whose matmuls run in float32,
+    on `dev` in eval mode."""
+    from posteriflow_torch.models.npe import LeanNPE
+    from posteriflow_torch.train.checkpoints import load_release
+    model = LeanNPE(_f32_npe(cfg).npe)
+    model.load_state_dict(load_release(RELEASE)[0], strict=True)
+    return model.to(dev).eval()
+
+
+def _flagship_cfg():
+    """The flagship's TrainConfig, from its meta.json."""
+    from posteriflow_torch.utils.config import load_config
+    return load_config(f"{RELEASE}/meta.json")
+
+
+def z_heads(torch, plain, rqs_cuda, card, tmp):
+    """(z9) tools/frozen_context_heads on the flagship at batch
+    Z_HEAD_BATCH for Z_HEAD_STEPS steps a head; each head's NLL card
+    against CPU at its initial parameters on one batch of contexts."""
+    from posteriflow_torch.tools import frozen_context_heads as H
+    from posteriflow_torch.train.trainer import init_params
+    t0 = time.perf_counter()
+    report, n, shapes = _z_path(
+        torch, plain, rqs_cuda, "frozen_context_heads",
+        lambda: H.main(["--ckpt", RELEASE, "--device", DEVICE, "--steps",
+                        str(Z_HEAD_STEPS), "--batch", str(Z_HEAD_BATCH),
+                        "--out", f"{tmp}/heads.json"]))
+    wall = time.perf_counter() - t0
+    per_step = {"nsf_small": 4, "nsf_large": 8, "mdn": 0}
+    want = sum(per_step.values()) * Z_HEAD_STEPS
+    npe = _flagship_cfg().npe
+    rng = np.random.default_rng(22)
+    ctx = torch.from_numpy(rng.normal(size=(Z_HEAD_BATCH, npe.context_dim))
+                           .astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-0.9, 0.9, (Z_HEAD_BATCH, npe.n_params))
+                         .astype(np.float32))
+    gaps = {}
+    for name in H.HEADS:
+        head = init_params(H.make_head(name, npe.context_dim, npe.n_params),
+                           torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            # the flows' zero output layers moved, so the splines bend
+            for pname, p in head.named_parameters():
+                if ".out." in pname:
+                    p.add_(0.02 * torch.randn(
+                        p.shape, generator=torch.Generator().manual_seed(
+                            p.numel())))
+            ref = head(ctx, y).numpy()
+            got = head.to(DEVICE)(ctx.to(DEVICE), y.to(DEVICE)).cpu().numpy()
+        gaps[name] = float(np.max(np.abs(got - ref)))
+        if name == "mdn":
+            gaps[name] /= max(1.0, float(np.abs(ref).max()))
+    print(f"(z9) frozen_context_heads {Z_HEAD_STEPS} steps x batch "
+          f"{Z_HEAD_BATCH} a head [{card}]: {wall:.2f} s; "
+          + "; ".join(f"{k} NLL {v['initial_nll']:.3f} -> "
+                      f"{v['final_nll']:.3f}" for k, v in report["heads"]
+                      .items())
+          + f"; spread {report['final_nll_spread']:.3f} "
+          f"({report['interpretation']}); card vs CPU at one batch: {gaps} "
+          f"(mdn relative, tol {Z_TOL:g}; flows nats, tol {Z_HEAD_TOL:g})")
+    check(all(math.isfinite(v["final_nll"]) for v in report["heads"].values()),
+          "a head's NLL is not finite")
+    check(gaps["mdn"] <= Z_TOL, f"MDN head card vs CPU {gaps['mdn']}")
+    check(max(gaps["nsf_small"], gaps["nsf_large"]) <= Z_HEAD_TOL,
+          f"flow heads card vs CPU {gaps}")
+    check(n == (want, want), f"frozen_context_heads launches {n}, expected "
+                             f"{want} + {want}")
+    check(set(shapes) == {(Z_HEAD_BATCH, 7, 8, False),
+                          (Z_HEAD_BATCH, 7, 8, "grad")},
+          f"frozen_context_heads kernel shapes {shapes}")
+    return {"seconds": wall, "launches": n, "shapes": shapes}
+
+
+def z_benchmark(torch, plain, rqs_cuda, card, tmp):
+    """(z10) tools/benchmark_real_events --events GW150914 on the flagship
+    with the nested run cut to Z_BRE_NLIVE / Z_BRE_MAXITER; the
+    marginalized likelihood on that injection card against CPU."""
+    from posteriflow_torch.inference.pipeline import load_model
+    from posteriflow_torch.inference import importance as imp
+    from posteriflow_torch.inference.preprocessing import prepare_simulated
+    from posteriflow_torch.tools import benchmark_real_events as B
+    t0 = time.perf_counter()
+    summary, n, shapes = _z_path(
+        torch, plain, rqs_cuda, "benchmark_real_events GW150914",
+        lambda: B.main(["--ckpt", RELEASE, "--device", DEVICE, "--events",
+                        "GW150914", "--nlive", str(Z_BRE_NLIVE),
+                        "--maxiter", str(Z_BRE_MAXITER), "--out",
+                        f"{tmp}/bre"]))
+    wall = time.perf_counter() - t0
+    rec = summary["GW150914"]
+    from posteriflow_torch.data.gwtc import GWTCLoader
+    engine = load_model(RELEASE, device=DEVICE)
+    ev = GWTCLoader().get_event("GW150914")
+    prep = prepare_simulated([dict(
+        mass_1=ev["mass_1"], mass_2=ev["mass_2"],
+        luminosity_distance=min(ev["luminosity_distance"], 2100.0), ra=1.5,
+        dec=-0.3, theta_jn=0.6, psi=0.4, phase=1.2, geocent_time=0.0,
+        a1=0.0, a2=0.0)], seed=5, param_names=engine.cfg.param_names,
+        device=DEVICE)
+    samples = np.load(f"{tmp}/bre/GW150914/samples.npy")
+    theta = np.concatenate([prep.truth, samples]).astype(
+        np.float32)[:Z_HOLD_EVENTS]
+    scale = _ll_scale(torch, theta, prep.strain)
+    got = imp.make_marginalized_log_likelihood(
+        prep.strain, device=DEVICE)(theta).astype(np.float64)
+    ref = imp.make_marginalized_log_likelihood(
+        prep.strain, device="cpu")(theta).astype(np.float64)
+    gap = float(np.max(np.abs(got - ref) / scale))
+    print(f"(z10) benchmark_real_events GW150914 [{card}]: {wall:.2f} s; NPE "
+          f"{rec['t_npe_s']:.3f} s, {rec['nested_sampler']} "
+          f"{rec['t_nested_s']:.2f} s at nlive {Z_BRE_NLIVE}, maxiter "
+          f"{Z_BRE_MAXITER}; verdict {rec['verdict']}; the marginalized "
+          f"likelihood card vs CPU on {len(theta)} θ {gap:.2e} (tol "
+          f"{IS_LL_TOL:g})")
+    check(gap <= IS_LL_TOL, f"benchmark likelihood card vs CPU {gap}")
+    check(n == (10, 0) and shapes == {(2000, 7, K_BINS, True): 10},
+          f"benchmark_real_events launches {n}, {shapes}")
+    return {"seconds": wall, "launches": n, "shapes": shapes}
+
+
+def z_examples(torch, plain, rqs_cuda, card, cpu_engine):
+    """(z11) examples/explore_data and examples/analyze_results, their
+    compute on the card (no plots: the card's machine may lack
+    matplotlib), against CPU runs."""
+    from posteriflow_torch.examples import analyze_results, explore_data
+    from posteriflow_torch.inference.pipeline import (InferenceEngine,
+                                                      load_model)
+    from posteriflow_torch.physics.simulator import draw_events
+    from posteriflow_torch.train.checkpoints import load_release
+    t0 = time.perf_counter()
+    card_x = explore_data.explore(64, 0, DEVICE)["stats"]
+    cpu_x = explore_data.explore(64, 0, "cpu")["stats"]
+    print(f"(z11) explore_data 64 events [{card}]: "
+          f"{time.perf_counter() - t0:.2f} s with the CPU run; card "
+          f"{card_x}; CPU {cpu_x}")
+    check(sum(card_x["n_sig_dist"].values()) == 64
+          and abs(card_x["whitened_std"] - cpu_x["whitened_std"]) <= 0.05,
+          f"explore_data card vs CPU {card_x} {cpu_x}")
+    engine = load_model(RELEASE, device=DEVICE)
+    draws = draw_events((), torch.Generator().manual_seed(23), "cpu")
+    z = torch.from_numpy(np.random.default_rng(24).normal(
+        size=(1, 2000, engine.cfg.n_params)).astype(np.float32))
+    t0 = time.perf_counter()
+    tour, n, shapes = _z_path(
+        torch, plain, rqs_cuda, "analyze_results with --importance",
+        lambda: analyze_results.analyze(engine, 2000, importance=True,
+                                        draws=_to(draws, DEVICE), z=z))
+    wall = time.perf_counter() - t0
+    # card against CPU in float32 (phase c's bar on the draws); as
+    # released, a bfloat16 activation that rounds the other way moves a
+    # draw far, so that gap is printed
+    ref = analyze_results.analyze(cpu_engine, 2000, draws=draws, z=z)
+    bf16 = float(np.median(np.abs(tour["result"].samples
+                                  - ref["result"].samples)))
+    state_dict = load_release(RELEASE)[0]
+    npe32 = dataclasses.replace(engine.cfg, flow_dtype="float32",
+                                encoder_dtype="float32")
+    s32 = [analyze_results.analyze(
+        InferenceEngine(state_dict, npe32, device=dev), 2000,
+        draws=_to(draws, dev), z=z)["result"].samples
+        for dev in (DEVICE, "cpu")]
+    gap = float(np.max(np.abs(s32[0] - s32[1]))
+                / max(1.0, np.abs(s32[1]).max()))
+    is_res = tour["importance"]
+    print(f"(z11) analyze_results [{card}]: {wall:.2f} s with the importance "
+          f"correction (ESS {is_res.ess:.1f}, efficiency "
+          f"{is_res.efficiency:.3f}, {is_res.n_stages} stages); the 2000 "
+          f"draws card vs CPU in float32 {gap:.2e} of the larger of 1 and "
+          f"the largest (tol 1e-3, phase c's bar); as released (bfloat16) "
+          f"median |Δ| {bf16:.3e}, printed; |median - truth| "
+          + ", ".join(f"{k} {v:.3f}" for k, v in zip(
+              engine.cfg.param_names[:4], tour["abs_error"][:4])))
+    check(gap <= 1e-3, f"analyze_results card vs CPU {gap}")
+    check(np.isfinite(is_res.weights).all() and is_res.ess > 0,
+          "analyze_results importance weights")
+    return {"seconds": wall, "launches": n, "shapes": shapes}
+
+
+def z_kernels(torch, plain, rqs_cuda, card):
+    """(z12) the spline kernels at the new paths' shapes (Z_SHAPES):
+    rqs_tile bit-equal to the plain spline both ways, with and without the
+    bias, rqs_grad<8> at frozen_context_heads' rows against the plain VJP;
+    each shape timed beside its bound and the plain version."""
+    times = {}
+    for n, d, k, inverse in Z_SHAPES:
+        x, raw, bias = spline_inputs(torch, n, seed=n + k + d, k=k, d=d)
+        for b in (None, bias):
+            for inv in (False, True):
+                k_out, k_ld = rqs_cuda.KERNEL.launch(
+                    x, raw.reshape(n, -1), k, TAIL, inv, bias=b)
+                p_fn = plain.rqs_inverse if inv else plain.rqs_forward
+                p_out, p_ld = p_fn(x, raw if b is None else raw + b, k, TAIL)
+                torch.cuda.synchronize()
+                e = max(float((k_out - p_out).abs().max()),
+                        float((k_ld - p_ld).abs().max()))
+                check(e == 0.0, f"rqs_tile<{k}> N={n} D={d} inverse={inv} "
+                                f"bias={b is not None} differs: {e}")
+        t = forward_timing(torch, plain, rqs_cuda, x, raw, bias,
+                           inverse=inverse, k=k)
+        times[(n, d, k, inverse)] = t
+        print(f"(z12) rqs_tile<{k}, {'inverse' if inverse else 'forward'}, "
+              f"bias> N={n} D={d} [{card}]: bit-equal to the plain spline "
+              f"both ways, with and without the bias; device time a launch "
+              + ("not measured" if t["ms"] is None
+                 else f"{t['ms'] * 1e3:.2f} us")
+              + f" (profiler), {t['events_ms'] * 1e3:.2f} us by CUDA events,"
+              f" plain {t['plain_ms'] * 1e3:.1f} us; bound "
+              f"{t['bound_ms'] * 1e3:.4f} us ({t['bound_by']}: "
+              f"{rqs_bytes(n, d, k)} B)")
+    n, d, k = Z_HEAD_BATCH, 7, 8
+    x, raw, g_out, g_ld, bias = grad_inputs(torch, plain, n, k, seed=25,
+                                            d=d)
+    worst = 0.0
+    for b in (None, bias):
+        ref = plain.rqs_forward_vjp(x, raw, g_out, g_ld, k, TAIL, bias=b)
+        got = rqs_cuda.GRAD_KERNEL.launch(x, raw.reshape(n, -1), g_out, g_ld,
+                                          k, TAIL, b)
+        torch.cuda.synchronize()
+        errs = [grad_err(got[0], ref[0]),
+                grad_err(got[1].reshape(ref[1].shape), ref[1])]
+        worst = max(worst, *errs)
+        check(all(math.isfinite(e) and e <= GRAD_REL for e in errs),
+              f"rqs_grad<{k}> N={n} D={d}: {errs}")
+    raw2 = raw.reshape(n, -1)
+
+    def grad_fn():
+        return rqs_cuda.GRAD_KERNEL.launch(x, raw2, g_out, g_ld, k, TAIL,
+                                           bias)
+    nbytes, nops = rqs_grad_bytes(n, d, k), rqs_grad_ops(n, d, k)
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOPS
+    g = {"ms": kernel_device_ms(torch, grad_fn, "rqs_grad"),
+         "events_ms": cuda_time_ms(grad_fn, reps=50),
+         "plain_ms": cuda_time_ms(lambda: plain.rqs_forward_vjp(
+             x, raw, g_out, g_ld, k, TAIL, bias=bias), reps=5),
+         "bound_ms": max(by_bytes, by_ops) * 1e3,
+         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+         "max_rel_err": worst}
+    print(f"(z12) rqs_grad<{k}, bias> N={n} D={d} [{card}]: within "
+          f"{worst:.2e} of the plain VJP's largest entry (tol {GRAD_REL:g} + "
+          f"{GRAD_ABS:g}); device time a launch "
+          + ("not measured" if g["ms"] is None else f"{g['ms'] * 1e3:.2f} us")
+          + f" (profiler), {g['events_ms'] * 1e3:.2f} us by CUDA events, "
+          f"plain VJP {g['plain_ms'] * 1e3:.1f} us; bound "
+          f"{g['bound_ms'] * 1e3:.4f} us ({g['bound_by']}: {nbytes} B)")
+    return {"times": times, "grad": g}
+
+
+def phase_rest(torch, plain, rqs_cuda, card, tmp):
+    """(z) the modules and tools of the last slice, z1-z12."""
+    from posteriflow_torch.inference.pipeline import InferenceEngine
+    from posteriflow_torch.train.checkpoints import load_npe
+    t0 = time.perf_counter()
+    cpu_model, _ = load_npe(RELEASE, device="cpu")
+    cpu_engine = InferenceEngine.from_checkpoint(RELEASE, device="cpu")
+    out = {"physics": z_physics(torch, card, tmp),
+           "waveforms": z_waveforms(torch, card),
+           "svd": z_svd(torch, card),
+           "transformer": z_transformer(torch, card),
+           "dataset": z_dataset(torch, card, tmp),
+           "real_noise": z_real_noise(torch, plain, rqs_cuda, card,
+                                      cpu_model, tmp),
+           "precession": z_precession(torch, plain, rqs_cuda, card, tmp),
+           "probe": z_probe(torch, plain, rqs_cuda, card, cpu_model, tmp),
+           "heads": z_heads(torch, plain, rqs_cuda, card, tmp),
+           "benchmark": z_benchmark(torch, plain, rqs_cuda, card, tmp),
+           "examples": z_examples(torch, plain, rqs_cuda, card, cpu_engine),
+           "kernels": z_kernels(torch, plain, rqs_cuda, card)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"(z) the last slice's phase done in {out['seconds']:.1f} s "
+          f"[{card}]")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4922,6 +5703,8 @@ def main() -> int:
             y_s = time.perf_counter() - t0
             print(f"(y) parallelism and v3 phases done in {y_s:.1f} s "
                   f"[{card}]")
+            os.makedirs(f"{tmp}/z")
+            zr = phase_rest(torch, plain, rqs_cuda, card, f"{tmp}/z")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4980,7 +5763,17 @@ def main() -> int:
                              f"fit(mesh=) 1 epoch x {Y_FIT_STEPS} steps, "
                              f"rank 0 (y2)": y_fit_l[0],
                              f"make_batched_decompose(mesh=), rank 0 (y3)":
-                                 len(ym["ranks"][0]["decompose"]["rows"])},
+                                 len(ym["ranks"][0]["decompose"]["rows"]),
+                             "real_noise_test, 256 events (z6)":
+                                 zr["real_noise"]["launches"][0],
+                             "precession_robustness on npe_r3_best, 3 x "
+                             "4096 draws (z7)":
+                                 zr["precession"]["launches"][0],
+                             "benchmark_real_events GW150914 (z10)":
+                                 zr["benchmark"]["launches"][0],
+                             "analyze_results with the importance "
+                             "correction (z11)":
+                                 zr["examples"]["launches"][0]},
         "max_abs_err": max(errs["inverse"][0], errs["forward"][0]),
         "max_abs_err_logdet": max(errs["inverse"][1], errs["forward"][1]),
         "ms": k_ms, "plain_ms": p_ms,
@@ -4997,6 +5790,9 @@ def main() -> int:
             val["timing"][VAL_CHUNK * VAL_POST],
         f"rows_{VAL_CHUNK}_forward_bias": val["timing"][VAL_CHUNK],
         f"rows_{ANCHOR_ROWS}_inverse_bias": x_rows,
+        **{f"rows_{n}_d{d}_{'inverse' if inv else 'forward'}_bias":
+           zr["kernels"]["times"][(n, d, k, inv)]
+           for n, d, k, inv in Z_SHAPES if k == K_BINS},
         "library_ms": None,
     }, {
         "name": "rqs_grad<16, bias> (RQS spline backward, training)",
@@ -5104,7 +5900,9 @@ def main() -> int:
             f"train_long_bns --tokens v3 {Y_V3_STEPS} steps with "
             f"evaluations and calibration (y5)": y5["launches"][0],
             f"validate_long_bns on the v3 run, {Y_V3_VAL[0]} x "
-            f"{Y_V3_VAL[1]} (y5)": y5["val_launches"]},
+            f"{Y_V3_VAL[1]} (y5)": y5["val_launches"],
+            f"frozen_context_heads, 2 flow heads x {Z_HEAD_STEPS} steps "
+            f"(z9)": zr["heads"]["launches"][0]},
         "max_abs_err": lbk["tile_err"][LB_V1_K],
         "ms": t_v1["ms"] if t_v1["ms"] is not None else t_v1["events_ms"],
         "ms_from": (f"profiler device time, inverse at "
@@ -5115,6 +5913,8 @@ def main() -> int:
         f"rows_{LB_V1_CHUNK}_forward": t_v1f,
         f"rows_{Y_V3_ROWS[0]}_forward_v3": y5["times"][Y_V3_ROWS[0]],
         f"rows_{Y_V3_ROWS[1]}_inverse_v3": y5["times"][Y_V3_ROWS[1]],
+        f"rows_{Z_HEAD_BATCH}_d7_forward_heads": zr["kernels"]["times"][
+            (Z_HEAD_BATCH, 7, 8, False)],
         "library_ms": None,
     }, {
         "name": f"rqs_grad<{Y_V3_K}, bias> (the v3 model's spline "
@@ -5125,7 +5925,9 @@ def main() -> int:
         "launches": y5["launches"][1],
         "launches_by_path": {
             f"train_long_bns --tokens v3 {Y_V3_STEPS} steps (y5)":
-                y5["launches"][1]},
+                y5["launches"][1],
+            f"frozen_context_heads, 2 flow heads x {Z_HEAD_STEPS} steps "
+            f"(z9)": zr["heads"]["launches"][1]},
         "max_abs_err": y5["grad"]["max_abs_err"],
         "max_rel_err": y5["grad"]["max_rel_err"],
         "ms": (y5["grad"]["ms"] if y5["grad"]["ms"] is not None
@@ -5134,6 +5936,7 @@ def main() -> int:
         "plain_ms": y5["grad"]["plain_ms"],
         "bound_ms": y5["grad"]["bound_ms"],
         "bound_by": y5["grad"]["bound_by"],
+        f"rows_{Z_HEAD_BATCH}_d7_heads": zr["kernels"]["grad"],
         "library_ms": None,
     }]
     print(f"(e) done in {time.perf_counter() - t_start:.1f} s [{card}]; "
@@ -5167,7 +5970,11 @@ def main() -> int:
           f"data-parallel training at world {ym['world']} "
           f"{y_st['steps_per_s']:.2f} steps/s; v3 training "
           f"{y5['train_s']:.1f} s for {Y_V3_STEPS} steps (peak "
-          f"{y5['peak_gib']:.2f} GiB); phase y {y_s:.1f} s")
+          f"{y5['peak_gib']:.2f} GiB); phase y {y_s:.1f} s; phase z "
+          f"{zr['seconds']:.1f} s (build_svd_basis 512 x 64 "
+          f"{zr['svd']['seconds']:.2f} s, frozen_context_heads "
+          f"{zr['heads']['seconds']:.2f} s, precession_robustness "
+          f"{zr['precession']['seconds']:.2f} s)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -200,7 +200,7 @@ class ISResult:
     diagnostics: dict = dataclasses.field(default_factory=dict)
 
 
-def host_log_prior(cfg: PriorConfig = PriorConfig(), device="cpu"):
+def host_log_prior(cfg: PriorConfig = PriorConfig(), device="cuda"):
     """log_prior_bbh as a host callable: θ [N, P] (numpy) -> numpy float32
     [N], evaluated in float32 on `device`."""
     device = torch.device(device)

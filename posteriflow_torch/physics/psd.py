@@ -1,6 +1,6 @@
 """Analytic design PSDs, the measured-ASD file loader, and the device ASD.
 
-Port of posteriflow_tpu/physics/psd.py (:36-111). PSD values (~1e-47 1/Hz)
+Port of posteriflow_tpu/physics/psd.py. PSD values (~1e-47 1/Hz)
 underflow float32, so they stay float64 on the host; the device sees only
 the ASD, in scaled strain units (× STRAIN_SCALE), as `default_network_asd`
 gives it.
@@ -85,3 +85,25 @@ def load_asd_file(path, freqs: np.ndarray = FREQS) -> np.ndarray:
     asd = np.exp(np.interp(np.log(f), np.log(f_file), np.log(v_file)))
     wall = max(10.0, float(f_file[0]))
     return np.where(np.asarray(freqs) < wall, np.sqrt(PSD_CAP), asd)
+
+
+def load_network_asd(paths, freqs: np.ndarray = FREQS,
+                     device="cuda") -> torch.Tensor:
+    """Per-detector ASD files -> [n_det, N_RFFT] float32 on `device`, in
+    scaled strain units. `paths`: a dict {det: path} (a detector it lacks
+    gets its design curve) or a sequence ordered like DETECTORS."""
+    if isinstance(paths, dict):
+        rows = [load_asd_file(paths[d], freqs) if d in paths
+                else np.sqrt(psd_for(d, freqs)) for d in DETECTORS]
+    else:
+        rows = [load_asd_file(p, freqs) for p in paths]
+    return torch.tensor(np.stack(rows) * STRAIN_SCALE, dtype=torch.float32,
+                        device=device)
+
+
+def asd_from_psd(psd: np.ndarray, device="cuda") -> torch.Tensor:
+    """Host float64 physical PSD -> float32 ASD in scaled strain units
+    (× STRAIN_SCALE) on `device`; the PSD is floored at PSD_FLOOR."""
+    return torch.tensor(
+        np.sqrt(np.maximum(np.asarray(psd, dtype=np.float64), PSD_FLOOR))
+        * STRAIN_SCALE, dtype=torch.float32, device=device)

@@ -28,6 +28,7 @@ import torch
 from posteriflow_torch.physics.constants import MTSUN_SI
 from posteriflow_torch.physics.waveforms.imr import qnm_frequency
 from posteriflow_torch.physics.waveforms.taylorf2 import (cbrt,
+                                                          polarizations,
                                                           taylorf2_amp_phase)
 
 _AMP_F_JOIN_INS = 0.014     # amplitude inspiral/intermediate boundary [Mf]
@@ -454,3 +455,13 @@ def phenomd_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
     amp = amp_newt * torch.clamp_min(stripped, 0.0)
     amp = torch.where(freqs >= f_lower, amp, 0.0)
     return amp, psi
+
+
+def phenomd_polarizations(freqs, mass_1, mass_2, chi_1, chi_2,
+                          luminosity_distance, theta_jn, phase_c,
+                          f_lower: float = 20.0):
+    """(h̃₊, h̃ₓ) [..., F] complex64 PhenomD waveform, coalescence at t = 0
+    (posteriflow_tpu/physics/waveforms/phenomd.py:459)."""
+    amp, psi = phenomd_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
+                                 luminosity_distance, phase_c, f_lower)
+    return polarizations(amp, psi, theta_jn)

@@ -1,7 +1,7 @@
 """Single-spin precession: the PhenomP-style twist-up of the aligned
 PhenomD(+matter) co-precessing waveform.
 
-Port of posteriflow_tpu/physics/waveforms/precession.py:49-289. Euler
+Port of posteriflow_tpu/physics/waveforms/precession.py. Euler
 angles (α, β, ε) of the co-precessing frame from leading-order
 orbit-averaged precession (cos β = (L + S_l)/|J|, dα/df = Ω_p dt/df,
 dε/df = cos β dα/df, α and ε by a cumulative trapezoid), then the Wigner-D
@@ -19,8 +19,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-from posteriflow_torch.physics.constants import MTSUN_SI
+from posteriflow_torch.physics.constants import (DELTA_F, DURATION, FREQS,
+                                                 MTSUN_SI)
 from posteriflow_torch.physics.waveforms.taylorf2 import cbrt
+from posteriflow_torch.physics.waveforms.tidal import phenomd_matter_amp_phase
+from posteriflow_torch.utils.constants import device_constant
 
 
 def spin_components(a1, a2, tilt_1, tilt_2, phi_12, mass_1, mass_2):
@@ -202,3 +205,53 @@ def twist_factors_decimated(freqs_np: np.ndarray, mass_1, mass_2, chi_1,
         return x_u * (m_u / torch.clamp_min(torch.abs(x_u), 1e-12))
 
     return up(sp_c), up(sm_c)
+
+
+def phenomp_polarizations(freqs, mass_1, mass_2, chi_1, chi_2,
+                          luminosity_distance, theta_jn, phase_c,
+                          chi_p=0.0, f_lower: float = 20.0, alpha0=0.0):
+    """(h̃₊, h̃ₓ) [..., F] complex64 precessing waveform: the PhenomD(+matter)
+    co-precessing content twisted by the full-grid precession angles
+    (posteriflow_tpu/physics/waveforms/precession.py:297). theta_jn is the
+    J-frame inclination, alpha0 carries phi_jl; chi_p = 0 gives
+    phenomd_matter_polarizations to float32 roundoff."""
+    amp, psi = phenomd_matter_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
+                                        luminosity_distance, phase_c,
+                                        f_lower)
+    dev = amp.device
+    sp, sm = twist_factors(freqs, mass_1, mass_2, chi_1, chi_2,
+                           torch.as_tensor(chi_p, device=dev),
+                           torch.as_tensor(theta_jn, device=dev), f_lower,
+                           torch.as_tensor(alpha0, device=dev))
+    h_cp = _expi(-psi) * (0.5 * amp)
+    h_plus = h_cp * 0.5 * (sp + sm)
+    h_cross = 1j * h_cp * 0.5 * (sp - sm)
+    return h_plus.to(torch.complex64), h_cross.to(torch.complex64)
+
+
+def precessing_signal_white_fd(params: torch.Tensor, chi_p, asd: torch.Tensor,
+                               f_lower: float = 20.0) -> torch.Tensor:
+    """One precessing signal's whitened per-detector FD strain
+    [n_det, N_RFFT] complex64 (posteriflow_tpu/physics/waveforms/
+    precession.py:316): h_d = (F₊ᵈ h̃₊ + Fₓᵈ h̃ₓ)·e^{-2πifτ_d} / ASD_d ·
+    √(4Δf), the time shift taken through mod-1 cycles in float32 as the
+    simulator takes it. params [11] in PARAM_NAMES order (a1, a2 aligned);
+    the result is on the params' device."""
+    from posteriflow_torch.physics.projection import GMST_REF
+    from posteriflow_torch.physics.detectors import (OMEGA_EARTH,
+                                                     network_response)
+    dev = params.device
+    (m1, m2, d, ra, dec, theta_jn, psi_pol, phase, t_off, a1,
+     a2) = params.to(torch.float32)[:11].unbind(-1)
+    freqs = device_constant("freqs_f32", dev, lambda: torch.from_numpy(
+        np.asarray(FREQS, np.float32)))
+    hp, hc = phenomp_polarizations(freqs, m1, m2, a1, a2, d, theta_jn, phase,
+                                   chi_p=chi_p, f_lower=f_lower)
+    gmst = GMST_REF + OMEGA_EARTH * t_off
+    f_plus, f_cross, dt = network_response(ra, dec, psi_pol, gmst)
+    tau = (0.5 * DURATION + t_off + dt).to(torch.float32)
+    cycles = torch.remainder(freqs[None, :] * tau[:, None], 1.0)
+    shift = _expi((-2.0 * math.pi) * cycles)
+    h = ((f_plus[:, None] * hp[None, :] + f_cross[:, None] * hc[None, :])
+         * shift / torch.clamp_min(asd, 1e-38) * math.sqrt(4.0 * DELTA_F))
+    return h.to(torch.complex64)

@@ -113,7 +113,13 @@ def taylorf2_polarizations(freqs, mass_1, mass_2, chi_1, chi_2,
                                   luminosity_distance, phase_c, f_lower)
     f_isco = isco_frequency(mass_1 + mass_2)
     amp = torch.where(freqs <= f_isco, amp, 0.0)
-    ci = torch.cos(torch.as_tensor(theta_jn))
+    return polarizations(amp, psi, theta_jn)
+
+
+def polarizations(amp, psi, theta_jn):
+    """(h̃₊, h̃ₓ) complex64 of an aligned-spin (2, 2) amplitude and phase:
+    h̃₊ = A·(1 + cos²ι)/2·e^{-iΨ}, h̃ₓ = A·cos ι·i·e^{-iΨ}."""
+    ci = torch.cos(torch.as_tensor(theta_jn, device=amp.device))
     cos_p, sin_p = torch.cos(psi), torch.sin(psi)
     w_p = amp * 0.5 * (1.0 + ci * ci)
     w_c = amp * ci

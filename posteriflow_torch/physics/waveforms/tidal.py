@@ -16,7 +16,8 @@ import torch
 
 from posteriflow_torch.physics.constants import MTSUN_SI
 from posteriflow_torch.physics.waveforms.phenomd import phenomd_amp_phase
-from posteriflow_torch.physics.waveforms.taylorf2 import cbrt
+from posteriflow_torch.physics.waveforms.taylorf2 import (cbrt,
+                                                          polarizations)
 
 NS_MAX_MASS = 3.0        # Λ(m) = 0 above this (BH); prior NS boxes end at 2.5
 LAMBDA_14 = 330.0        # Λ at 1.4 Msun
@@ -109,3 +110,15 @@ def phenomd_matter_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
                                  phase=phase)
     psi_t, taper = matter_effects(freqs, mass_1, mass_2, phase=phase)
     return amp * taper, (psi + psi_t if phase else None)
+
+
+def phenomd_matter_polarizations(freqs, mass_1, mass_2, chi_1, chi_2,
+                                 luminosity_distance, theta_jn, phase_c,
+                                 f_lower: float = 20.0):
+    """(h̃₊, h̃ₓ) [..., F] complex64 of PhenomD × matter effects, the
+    production approximant (posteriflow_tpu/physics/waveforms/tidal.py:168);
+    for BBH masses (Λ = 0) exactly PhenomD."""
+    amp, psi = phenomd_matter_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
+                                        luminosity_distance, phase_c,
+                                        f_lower)
+    return polarizations(amp, psi, theta_jn)

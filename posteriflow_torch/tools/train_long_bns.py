@@ -247,6 +247,21 @@ def _save_state(run, outdir: Path):
     write_params(run.model, outdir / "params.msgpack")
 
 
+def keep_finished_calibration(cal_path: Path):
+    """Move a finished run's calibration.json (one that is not a "pending"
+    record) to calibration.prev.json, so that a new run started in its
+    directory, and killed before its end-of-run battery, does not destroy
+    it."""
+    if not cal_path.exists():
+        return
+    try:
+        finished = not json.loads(cal_path.read_text()).get("pending", False)
+    except (ValueError, AttributeError):
+        finished = True
+    if finished:
+        cal_path.replace(cal_path.with_name("calibration.prev.json"))
+
+
 def _mesh_rank(rank: int, argv):
     run_training(argv)
 
@@ -256,8 +271,9 @@ def run_training(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
     if args.prng != "threefry2x32":
-        ap.error("--prng: the port draws from torch.Generators seeded by "
-                 "step; JAX's PRNG choice waits for ROADMAP §1 item 3")
+        ap.error("--prng: the port has no PRNG choice: torch has one "
+                 "generator a device, so the flag has nothing to select "
+                 "(ROADMAP §3 findings, from §1 item 3)")
     if args.cpu:
         args.device = "cpu"
 
@@ -303,6 +319,7 @@ def run_training(argv=None):
               **{k: run.enc_cfg[k] for k in ("d_model", "n_layers")}}
     cal_path = outdir / "calibration.json"
     if writer and not (args.resume and cal_path.exists()):
+        keep_finished_calibration(cal_path)
         cal_path.write_text(json.dumps({"pending": True, "config": config},
                                        indent=2))
 

@@ -273,6 +273,21 @@ def load_checkpoint_model(root, name: str):
     return saved["model"], cfg, meta
 
 
+def load_npe(path, name: str = "best", device="cuda"):
+    """-> (LeanNPE on `device` in eval mode, TrainConfig) from a release
+    directory (params.msgpack + meta.json) or from the training checkpoint
+    `name` under a CheckpointManager root: the model a tool encodes or
+    scores with."""
+    from posteriflow_torch.models.npe import LeanNPE
+    if (Path(path) / "params.msgpack").exists():
+        model, cfg, _ = CheckpointManager.load_release(path, device=device)
+        return model, cfg
+    state_dict, cfg, _ = load_checkpoint_model(path, name)
+    model = LeanNPE(cfg.npe)
+    model.load_state_dict(state_dict, strict=True)
+    return model.to(device).eval(), cfg
+
+
 class CheckpointManager:
     """Named checkpoints under one root: best / last / epoch_XXXX, each a
     directory holding state.pt and meta.json."""

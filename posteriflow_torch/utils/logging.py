@@ -1,15 +1,18 @@
-"""Logging and tracing for the port's tools.
+"""Logging, stage timing and tracing for the port's tools.
 
-Port of setup_logging and jax_trace of posteriflow_tpu/utils/logging.py:
-31-41, 70-78. The JAX package also silences absl, orbax and jax there; the
-port imports none of them. `torch_trace` is jax_trace's counterpart: a
-torch.profiler trace of a region, written as a Chrome trace.
+Port of posteriflow_tpu/utils/logging.py: setup_logging, TimingLogger (a
+stage timer collecting seconds into a dict) and peak_rss_mb. The JAX
+package also silences absl, orbax and jax there; the port imports none of
+them. `torch_trace` is jax_trace's counterpart: a torch.profiler trace of
+a region, written as a Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import resource
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -22,6 +25,33 @@ def setup_logging(level: int = logging.INFO) -> logging.Logger:
         level=level, force=True,
         format="%(asctime)s %(levelname)s %(name)s %(message)s")
     return logging.getLogger("posteriflow")
+
+
+class TimingLogger:
+    """Context-manager stage timer: `with timer.stage(name):` adds the
+    stage's wall seconds to timings[name] (and logs them, given a
+    logger)."""
+
+    def __init__(self, log: Optional[logging.Logger] = None):
+        self.timings: dict[str, float] = {}
+        self.log = log
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.timings[name] = self.timings.get(name, 0.0) + dt
+            if self.log:
+                self.log.info("%s: %.3fs", name, dt)
+
+
+def peak_rss_mb() -> float:
+    """Peak resident set size of this process [MB] (ru_maxrss is in KiB
+    on Linux)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
 
 
 class Trace:

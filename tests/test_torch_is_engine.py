@@ -75,7 +75,7 @@ def test_fused_move_with_flow_anchor_matches_jax(setup):
     n, seed, beta = 128, 21, 0.4
     cur = _near_truth(n, 2).astype(np.float64)
     ll = np.asarray(_core(cur), np.float64)
-    lp = np.asarray(T.host_log_prior()(cur), np.float64)
+    lp = np.asarray(T.host_log_prior(device="cpu")(cur), np.float64)
     lg0 = np.asarray(J.symmetrized_log_q(jeng, jctx, 0, jnp.asarray(
         cur, jnp.float32), pad_block=n), np.float64)
     corr = np.random.default_rng(3).normal(0, 0.1, n)
@@ -140,3 +140,17 @@ def test_importance_correct_tempered_matches_jax(setup, monkeypatch):
         mu_t = np.sum(got.weights * got.samples[:, col])
         mu_j = np.sum(ref.weights * ref.samples[:, col])
         assert abs(mu_t - mu_j) <= 0.01 * abs(mu_j), (col, mu_t, mu_j)
+
+
+def test_host_log_prior_defaults_to_the_card():
+    """host_log_prior follows the port's rule for entry points, device=
+    with a default of "cuda"; on the CPU it is asked for by name and gives
+    log_prior_bbh's values."""
+    import inspect
+    default = inspect.signature(T.host_log_prior).parameters["device"]
+    assert default.default == "cuda"
+    cur = _near_truth(8, 5)
+    got = T.host_log_prior(device="cpu")(cur)
+    assert got.dtype == np.float32 and got.shape == (8,)
+    ref = T.log_prior_bbh(torch.from_numpy(cur), T.PriorConfig()).numpy()
+    np.testing.assert_array_equal(got, ref)

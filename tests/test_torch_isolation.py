@@ -1,6 +1,6 @@
 """The port runs on a machine that has PyTorch, numpy and scipy but none of
 the JAX stack, msgpack, pyyaml, scikit-learn, ninja, h5py, gwpy, gwosc,
-matplotlib, bilby or pandas.
+matplotlib, bilby, pandas or transformers.
 
 A subprocess blocks those imports with a sys.meta_path finder, imports
 every module of posteriflow_torch (the trainer, its tools and the OOD
@@ -17,9 +17,11 @@ flagship on a one-rank gloo group (parallel/mesh.py); it reads
 configs/npe_r6.yaml and exports the flagship (packb) and loads the export
 back (CheckpointManager.load_release).
 chip_smoke.py without a GPU exits
-non-zero, fast, with no result line. A scan of the sources checks what
-they import: h5py, gwpy, gwosc, matplotlib, bilby and pandas only inside
-the functions that need them (the plots, to_bilby), the rest nowhere.
+non-zero, fast, with no result line. A scan of the sources (the package,
+its tools and examples, and chip_smoke.py) checks what they import: h5py,
+gwpy, gwosc, matplotlib, bilby, pandas and transformers only inside the
+functions that need them (the plots, to_bilby, the dataset writer, the
+Whisper encoder), the rest nowhere.
 """
 
 import ast
@@ -34,9 +36,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "posteriflow_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "yaml",
            "ninja", "sklearn", "posteriflow_tpu", "h5py", "gwpy", "gwosc",
-           "matplotlib", "bilby", "pandas")
+           "matplotlib", "bilby", "pandas", "transformers")
 # imported by the port only inside the functions that need them
-OPTIONAL = ("h5py", "gwpy", "gwosc", "matplotlib", "bilby", "pandas")
+OPTIONAL = ("h5py", "gwpy", "gwosc", "matplotlib", "bilby", "pandas",
+            "transformers")
 
 _CHILD = r"""
 import importlib, importlib.abc, json, pkgutil, sys
@@ -241,7 +244,14 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
         "tools.calibrate_priority_net", "tools.priority_fusion_bound",
         "tools.make_anchors", "tools.anchor_convergence",
         "tools.evidence_validation", "parallel", "parallel.mesh",
-        "tools.dryrun_multichip", "tools.release_long_bns")}
+        "tools.dryrun_multichip", "tools.release_long_bns",
+        "physics.cosmology", "models.svd_basis",
+        "models.transformer_encoder", "tools.validate_pipeline_physics",
+        "tools.generate_dataset", "tools.real_noise_test",
+        "tools.precession_robustness", "tools.probe_context",
+        "tools.frozen_context_heads", "tools.benchmark_real_events",
+        "examples", "examples.analyze_results", "examples.explore_data",
+        "examples.toy_2d_npe")}
     assert expected <= set(out["modules"])
     assert out["shape"] == [64, 15] and out["finite"]
     assert out["verdict"] in ("HIGH", "MEDIUM", "LOW") and out["gate"]
@@ -295,7 +305,8 @@ def _walk_with_scope(tree):
 def test_sources_import_nothing_of_the_jax_stack():
     """No import of the JAX stack, msgpack, yaml, ninja or the JAX package,
     by statement or by importlib, no import of h5py, gwpy, gwosc,
-    matplotlib, bilby or pandas outside a function, and no use of
+    matplotlib, bilby, pandas or transformers outside a function, and no
+    use of
     PyTorch's C++ extension loader. (Docstrings may cite the JAX package's
     files by name.)"""
     bad = []

@@ -169,13 +169,17 @@ def test_train_refusals(flags, item, tmp_path, capsys):
     the sequence-parallel loss on two gloo ranks that the tool spawns
     (rank 0's history, "mesh": 2 recorded, the first step's NLL that of
     the unsharded run). --prng, which the port does not take, raises an
-    error that names its item."""
+    error that says the port has no PRNG choice and names its item and
+    the ROADMAP §3 finding."""
     argv = TINY + ["--outdir", str(tmp_path / "run"), "--steps", "1"]
     if item == "item 3":
         with pytest.raises(SystemExit) as e:
             tool.run_training(argv + flags)
         assert e.value.code == 2
-        assert item in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert item in err
+        assert "no PRNG choice" in err and "§3 findings" in err
+        assert "waits for" not in err
         return
     if item == "item 4":
         argv += ["--duration", "16", "--f-hi", "256"]
@@ -262,3 +266,33 @@ def test_validate_v1_and_refusals(tmp_path):
     model, _, grid = load_long_bns(bad, device="cpu")
     assert grid["config"] == chirp
     assert model.encoder.embed.in_features == 4 * 11
+
+
+def test_rerun_keeps_a_finished_calibration(tmp_path, monkeypatch):
+    """A run started in a finished run's directory without --resume moves
+    the old calibration.json (not a "pending" record) to
+    calibration.prev.json before it writes its own pending record, so that
+    a run killed before its end-of-run battery leaves the old record
+    intact; a pending record is not kept."""
+    run_dir = tmp_path / "run"
+    run_dir.mkdir()
+    old = json.loads((V4_RELEASE / "calibration.json").read_text())
+    (run_dir / "calibration.json").write_text(json.dumps(old))
+
+    def killed(*args, **kwargs):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(tool, "val_metrics", killed)
+    with pytest.raises(KeyboardInterrupt):
+        tool.run_training(TINY + ["--outdir", str(run_dir), "--steps", "2",
+                                  "--eval-every", "1"])
+    assert json.loads((run_dir / "calibration.json").read_text())["pending"]
+    assert json.loads(
+        (run_dir / "calibration.prev.json").read_text()) == old
+    # a second killed start: the pending record is replaced, the finished
+    # one stays where the first start put it
+    with pytest.raises(KeyboardInterrupt):
+        tool.run_training(TINY + ["--outdir", str(run_dir), "--steps", "2",
+                                  "--eval-every", "1"])
+    assert json.loads(
+        (run_dir / "calibration.prev.json").read_text()) == old
