@@ -29,6 +29,7 @@ from posteriflow_torch.inference.result import PosteriorResult
 from posteriflow_torch.models.npe import LeanNPE, NPEConfig
 from posteriflow_torch.train.checkpoints import (load_checkpoint_model,
                                                  load_release)
+from posteriflow_torch.utils.logging import count_h2d, span
 
 
 def _sync(device: torch.device):
@@ -77,11 +78,16 @@ class InferenceEngine:
     def encode(self, strain, asd_bands) -> torch.Tensor:
         """strain [B, 3, T], asd_bands [B, 3, K] (numpy or tensors) ->
         context [B, C] on the engine's device."""
-        s = torch.as_tensor(strain, dtype=torch.float32, device=self.device)
-        asd = (torch.as_tensor(asd_bands, dtype=torch.float32,
-                               device=self.device)
-               if self.cfg.uses_asd_bands else None)
-        return self.model.encode(s, asd)
+        with span("pf.npe.encode"):
+            count_h2d(strain, self.device)
+            s = torch.as_tensor(strain, dtype=torch.float32,
+                                device=self.device)
+            asd = None
+            if self.cfg.uses_asd_bands:
+                count_h2d(asd_bands, self.device)
+                asd = torch.as_tensor(asd_bands, dtype=torch.float32,
+                                      device=self.device)
+            return self.model.encode(s, asd)
 
     @torch.no_grad()
     def sample_posterior(self, context: torch.Tensor, rank: int,
@@ -90,19 +96,20 @@ class InferenceEngine:
                          z: Optional[torch.Tensor] = None):
         """context [B, C] -> (theta [B, n, P] physical with m1 >= m2,
         log q_phys [B, n], railed [B, n])."""
-        r = torch.full((context.shape[0],), rank, dtype=torch.long,
-                       device=context.device)
-        theta, y_raw, log_q_norm = self.model.sample_from_context(
-            context, r, n_samples, generator=generator, z=z)
-        railed = self.scaler.railing_mask(y_raw)
-        # physical-units density: log q_phys(x) = log q_norm(y) +
-        # log|d normalize/dx|
-        log_q_phys = log_q_norm + self.scaler.log_abs_det_jacobian(theta)
-        m1 = torch.maximum(theta[..., 0], theta[..., 1])
-        m2 = torch.minimum(theta[..., 0], theta[..., 1])
-        theta = torch.cat([m1[..., None], m2[..., None], theta[..., 2:]],
-                          dim=-1)
-        return theta, log_q_phys, railed
+        with span("pf.npe.sample"):
+            r = torch.full((context.shape[0],), rank, dtype=torch.long,
+                           device=context.device)
+            theta, y_raw, log_q_norm = self.model.sample_from_context(
+                context, r, n_samples, generator=generator, z=z)
+            railed = self.scaler.railing_mask(y_raw)
+            # physical-units density: log q_phys(x) = log q_norm(y) +
+            # log|d normalize/dx|
+            log_q_phys = log_q_norm + self.scaler.log_abs_det_jacobian(theta)
+            m1 = torch.maximum(theta[..., 0], theta[..., 1])
+            m2 = torch.minimum(theta[..., 0], theta[..., 1])
+            theta = torch.cat([m1[..., None], m2[..., None], theta[..., 2:]],
+                              dim=-1)
+            return theta, log_q_phys, railed
 
 
 _ENGINE_CACHE: Dict[str, InferenceEngine] = {}

@@ -31,6 +31,7 @@ from torch import nn
 from posteriflow_torch.models.flow import DTYPES, dense, gelu, in_dtype
 from posteriflow_torch.physics.constants import (F_LOWER, F_UPPER, N_SAMPLES,
                                                  SAMPLE_RATE)
+from posteriflow_torch.utils.logging import count_h2d, span
 from posteriflow_torch.utils.precision import fp32_exact
 
 STEM_SCHEDULE = ((32, 64, 8), (64, 16, 4), (128, 8, 4))   # (out, k, stride)
@@ -194,7 +195,7 @@ class LeanStrainEncoder(nn.Module):
 
     def forward(self, strain: torch.Tensor,
                 asd_bands: Optional[torch.Tensor] = None) -> torch.Tensor:
-        with fp32_exact():
+        with span("pf.encoder"), fp32_exact():
             return self._forward(strain, asd_bands)
 
     def _forward(self, strain: torch.Tensor,
@@ -204,37 +205,43 @@ class LeanStrainEncoder(nn.Module):
                                               neginf=-100.0), -100.0, 100.0)
 
         # energy branch from raw strain
-        w = self.n_energy_windows
-        win = strain[..., : (t // w) * w].reshape(b, d, w, -1)
-        e = torch.log(torch.mean(win ** 2, dim=-1) + 1e-8).reshape(b, -1)
-        energy_feat = gelu(self.energy_fc2(gelu(self.energy_fc1(e))))
+        with span("pf.encoder.energy"):
+            w = self.n_energy_windows
+            win = strain[..., : (t // w) * w].reshape(b, d, w, -1)
+            e = torch.log(torch.mean(win ** 2, dim=-1) + 1e-8).reshape(b, -1)
+            energy_feat = gelu(self.energy_fc2(gelu(self.energy_fc1(e))))
 
         extra = self.geometry_tokens(strain)
 
         # token branch on asinh-compressed strain
-        tokens = self.stem(torch.asinh(strain).reshape(b * d, t))
-        length = tokens.shape[1]
-        pe = torch.as_tensor(sinusoidal_positions(length, self.d_model),
-                             device=strain.device)
-        tokens = tokens + pe[None]                            # float32
-        tokens = tokens.reshape(b, d, length, self.d_model)
-        tokens = tokens + self.detector_embed[None, :, None, :]
-        tokens = tokens.reshape(b, d * length, self.d_model)
-        if extra is not None:
-            tokens = torch.cat([extra, tokens], dim=1)
-        tokens = tokens.float()
-        for i in range(self.n_layers):
-            tokens = getattr(self, f"fusion_{i}")(tokens)
+        with span("pf.encoder.stem"):
+            tokens = self.stem(torch.asinh(strain).reshape(b * d, t))
+            length = tokens.shape[1]
+            pe = sinusoidal_positions(length, self.d_model)
+            count_h2d(pe, strain.device)
+            pe = torch.as_tensor(pe, device=strain.device)
+            tokens = tokens + pe[None]                            # float32
+            tokens = tokens.reshape(b, d, length, self.d_model)
+            tokens = tokens + self.detector_embed[None, :, None, :]
+            tokens = tokens.reshape(b, d * length, self.d_model)
+            if extra is not None:
+                tokens = torch.cat([extra, tokens], dim=1)
+            tokens = tokens.float()
+        with span("pf.encoder.fusion"):
+            for i in range(self.n_layers):
+                tokens = getattr(self, f"fusion_{i}")(tokens)
 
-        feats = [self.pool(tokens), energy_feat]
-        if self.psd_bands > 0:
-            if asd_bands is None:        # zeros = design sensitivity
-                asd_bands = torch.zeros(b, self.n_detectors, self.psd_bands,
-                                        device=strain.device)
-            a = gelu(self.noise_fc1(asd_bands.reshape(b, -1)))
-            feats.append(gelu(self.noise_fc2(a)))
-        h = gelu(self.out_fc1(torch.cat(feats, dim=-1)))
-        return self.out_fc2(h)
+        with span("pf.encoder.head"):
+            feats = [self.pool(tokens), energy_feat]
+            if self.psd_bands > 0:
+                if asd_bands is None:        # zeros = design sensitivity
+                    asd_bands = torch.zeros(b, self.n_detectors,
+                                            self.psd_bands,
+                                            device=strain.device)
+                a = gelu(self.noise_fc1(asd_bands.reshape(b, -1)))
+                feats.append(gelu(self.noise_fc2(a)))
+            h = gelu(self.out_fc1(torch.cat(feats, dim=-1)))
+            return self.out_fc2(h)
 
 
 class CoherentEncoder(LeanStrainEncoder):
@@ -284,40 +291,44 @@ class CoherentEncoder(LeanStrainEncoder):
                                         n_geom_tokens * self.d_model)
 
     def geometry_tokens(self, strain: torch.Tensor) -> torch.Tensor:
-        b = strain.shape[0]
-        fd = torch.fft.rfft(strain, dim=-1) / math.sqrt(N_SAMPLES)  # unitary
-        dslice = fd[..., self.lo:self.lo + self.nf]                 # [B,D,Nf]
-        dr, di = dslice.real, dslice.imag
-        power = dr ** 2 + di ** 2
-        amp = torch.sqrt(power + 1e-12)
-        bsum_t = self.bsum.T
-        e_band = (power @ bsum_t) / self.bcount
-        feats = [torch.log(e_band + 1e-8).reshape(b, -1)]
+        with span("pf.encoder.geometry"):
+            b = strain.shape[0]
+            # unitary
+            fd = torch.fft.rfft(strain, dim=-1) / math.sqrt(N_SAMPLES)
+            dslice = fd[..., self.lo:self.lo + self.nf]          # [B, D, Nf]
+            dr, di = dslice.real, dslice.imag
+            power = dr ** 2 + di ** 2
+            amp = torch.sqrt(power + 1e-12)
+            bsum_t = self.bsum.T
+            e_band = (power @ bsum_t) / self.bcount
+            feats = [torch.log(e_band + 1e-8).reshape(b, -1)]
 
-        for i in range(self.n_detectors):
-            for j in range(i + 1, self.n_detectors):
-                xr = dr[:, i] * dr[:, j] + di[:, i] * di[:, j]  # Re(d_i d_j*)
-                xi = di[:, i] * dr[:, j] - dr[:, i] * di[:, j]  # Im(d_i d_j*)
-                num_r = xr @ bsum_t
-                num_i = xi @ bsum_t
-                den = (amp[:, i] * amp[:, j]) @ bsum_t + 1e-8
-                gr, gi = num_r / den, num_i / den
-                gmag = torch.sqrt(gr ** 2 + gi ** 2) + 1e-8
-                feats += [gmag, gr / gmag, gi / gmag]
+            for i in range(self.n_detectors):
+                for j in range(i + 1, self.n_detectors):
+                    # Re(d_i d_j*), Im(d_i d_j*)
+                    xr = dr[:, i] * dr[:, j] + di[:, i] * di[:, j]
+                    xi = di[:, i] * dr[:, j] - dr[:, i] * di[:, j]
+                    num_r = xr @ bsum_t
+                    num_i = xi @ bsum_t
+                    den = (amp[:, i] * amp[:, j]) @ bsum_t + 1e-8
+                    gr, gi = num_r / den, num_i / den
+                    gmag = torch.sqrt(gr ** 2 + gi ** 2) + 1e-8
+                    feats += [gmag, gr / gmag, gi / gmag]
 
-                # GCC delay: the lag-limited cross-correlation as a matmul
-                a = torch.abs(xr @ self.cos_l - xi @ self.sin_l)  # [B, lags]
-                tau = self.lags_norm[torch.argmax(a, dim=-1)][:, None]
-                peak = (torch.amax(a, dim=-1)
-                        / (torch.mean(a, dim=-1) + 1e-8))[:, None]
-                feats += [tau, peak]
+                    # GCC delay: the lag-limited cross-correlation as a
+                    # matmul, [B, lags]
+                    a = torch.abs(xr @ self.cos_l - xi @ self.sin_l)
+                    tau = self.lags_norm[torch.argmax(a, dim=-1)][:, None]
+                    peak = (torch.amax(a, dim=-1)
+                            / (torch.mean(a, dim=-1) + 1e-8))[:, None]
+                    feats += [tau, peak]
 
-                ei = torch.sum(power[:, i], dim=-1)
-                ej = torch.sum(power[:, j], dim=-1)
-                feats.append((torch.log(ei + 1e-8)
-                              - torch.log(ej + 1e-8))[:, None])
+                    ei = torch.sum(power[:, i], dim=-1)
+                    ej = torch.sum(power[:, j], dim=-1)
+                    feats.append((torch.log(ei + 1e-8)
+                                  - torch.log(ej + 1e-8))[:, None])
 
-        g = gelu(self.geom_fc1(torch.cat(feats, dim=-1)))
-        g = gelu(self.geom_fc2(g))
-        g = self.geom_to_tokens(g)
-        return g.reshape(b, self.n_geom_tokens, self.d_model)
+            g = gelu(self.geom_fc1(torch.cat(feats, dim=-1)))
+            g = gelu(self.geom_fc2(g))
+            g = self.geom_to_tokens(g)
+            return g.reshape(b, self.n_geom_tokens, self.d_model)

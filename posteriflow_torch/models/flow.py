@@ -23,6 +23,7 @@ from torch import nn
 
 from posteriflow_torch.ops import rqs_cuda
 from posteriflow_torch.ops.rqs import DEFAULT_MIN_DERIVATIVE
+from posteriflow_torch.utils.logging import span
 from posteriflow_torch.utils.precision import fp32_exact
 
 # derivative-channel init bias: min_derivative + softplus(b) = 1 exactly
@@ -148,17 +149,19 @@ class CouplingNSF(nn.Module):
         y = y[..., getattr(self, f"perm_{i}")]
         y_id, y_tr = y[..., :self.n_id], y[..., self.n_id:]
         cond = self._cond(i)
-        z_tr, ld = rqs_cuda.rqs_forward(y_tr, cond.project(y_id, context),
-                                        self.num_bins, self.tail_bound,
-                                        bias=cond.deriv_bias)
+        with span("pf.flow.conditioner"):
+            raw = cond.project(y_id, context)
+        z_tr, ld = rqs_cuda.rqs_forward(y_tr, raw, self.num_bins,
+                                        self.tail_bound, bias=cond.deriv_bias)
         return torch.cat([y_id, z_tr], dim=-1), ld
 
     def _layer_inverse(self, i: int, z: torch.Tensor, context: torch.Tensor):
         z_id, z_tr = z[..., :self.n_id], z[..., self.n_id:]
         cond = self._cond(i)
-        y_tr, ld = rqs_cuda.rqs_inverse(z_tr, cond.project(z_id, context),
-                                        self.num_bins, self.tail_bound,
-                                        bias=cond.deriv_bias)
+        with span("pf.flow.conditioner"):
+            raw = cond.project(z_id, context)
+        y_tr, ld = rqs_cuda.rqs_inverse(z_tr, raw, self.num_bins,
+                                        self.tail_bound, bias=cond.deriv_bias)
         y = torch.cat([z_id, y_tr], dim=-1)
         return y[..., getattr(self, f"inv_perm_{i}")], ld
 
@@ -186,12 +189,14 @@ class CouplingNSF(nn.Module):
 
     def log_prob(self, y: torch.Tensor, context: torch.Tensor):
         """log q(y | context) under the standard-normal base."""
-        z, ld = self.forward(y, context)
-        return self._log_base(z) + ld
+        with span("pf.flow.log_prob"):
+            z, ld = self.forward(y, context)
+            return self._log_base(z) + ld
 
     def sample_with_log_prob(self, z: torch.Tensor, context: torch.Tensor):
         """Push base draws z through the inverse -> (y, log q(y)); non-finite
         outputs are set to 0."""
-        y, ld = self.inverse(z, context)
-        y = torch.nan_to_num(y, nan=0.0, posinf=0.0, neginf=0.0)
-        return y, self._log_base(z) - ld
+        with span("pf.flow.sample"):
+            y, ld = self.inverse(z, context)
+            y = torch.nan_to_num(y, nan=0.0, posinf=0.0, neginf=0.0)
+            return y, self._log_base(z) - ld

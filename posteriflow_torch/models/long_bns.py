@@ -63,6 +63,7 @@ from posteriflow_torch.physics.whiten import whiten_fd
 from posteriflow_torch.prior import PriorConfig, sample_signal_params
 from posteriflow_torch.scaler import ParamScaler
 from posteriflow_torch.utils.constants import device_constant
+from posteriflow_torch.utils.logging import span
 from posteriflow_torch.utils.precision import fp32_exact
 from posteriflow_torch.utils.provenance import config_hash
 
@@ -349,14 +350,15 @@ def trigger_tokens(h_w: torch.Tensor, grid: dict, mc_hat: torch.Tensor,
     detector heterodyned by the conjugate fiducial phase Ψ(M̂c) plus the
     known epoch duration/2 + t̂_d, in float32 mod-1 cycles. `psi` may be
     given in place of `trigger_phase(grid, mc_hat)`."""
-    if psi is None:
-        psi = trigger_phase(grid, mc_hat)
-    fb = _grid_tensor(grid, "fb", h_w.device)
-    cyc = torch.remainder(fb * t_hat[..., None], 1.0)          # [..., D, n]
-    phase = psi[..., None, :] + 2.0 * math.pi * (
-        _grid_tensor(grid, "epoch_cyc", h_w.device) + cyc)
-    het = torch.complex(torch.cos(phase), torch.sin(phase))
-    return pool_heterodyned(h_w[..., grid["i_lo"]:] * het, grid)
+    with span("pf.lbns.tokens"):
+        if psi is None:
+            psi = trigger_phase(grid, mc_hat)
+        fb = _grid_tensor(grid, "fb", h_w.device)
+        cyc = torch.remainder(fb * t_hat[..., None], 1.0)      # [..., D, n]
+        phase = psi[..., None, :] + 2.0 * math.pi * (
+            _grid_tensor(grid, "epoch_cyc", h_w.device) + cyc)
+        het = torch.complex(torch.cos(phase), torch.sin(phase))
+        return pool_heterodyned(h_w[..., grid["i_lo"]:] * het, grid)
 
 
 # ── v3: the chirp-adapted static heterodyne ──────────────────────────────
@@ -713,29 +715,30 @@ class LongBNSEncoder(nn.Module):
                                    sinusoidal_positions(n, self.d_model)))
 
     def forward(self, tokens: torch.Tensor, seq_group=None) -> torch.Tensor:
-        b, lt, ft = tokens.shape
-        if self.patch > 1:
-            tokens = tokens.reshape(b, lt // self.patch, self.patch * ft)
-        n = tokens.shape[1]
-        if seq_group is None:
-            pos = self.positions(n, tokens.device)
-        else:
-            i = dist.get_rank(seq_group)
-            pos = self.positions(n * dist.get_world_size(seq_group),
-                                 tokens.device)[i * n:(i + 1) * n]
-        with fp32_exact():
-            h = self.embed(tokens) + pos
-            for i in range(self.n_layers):
-                ln_a = getattr(self, f"LayerNorm_{2 * i}")
-                ln_f = getattr(self, f"LayerNorm_{2 * i + 1}")
-                h = h + getattr(self, f"attn_{i}")(ln_a(h), seq_group)
-                f = getattr(self, f"ff1_{i}")(ln_f(h))
-                h = h + getattr(self, f"ff2_{i}")(gelu(f))
-            pooled = torch.mean(h, dim=1)
-            if seq_group is not None:
-                pooled = (all_reduce_sum(pooled, seq_group)
-                          / dist.get_world_size(seq_group))
-            return self.out(pooled)
+        with span("pf.lbns.encoder"):
+            b, lt, ft = tokens.shape
+            if self.patch > 1:
+                tokens = tokens.reshape(b, lt // self.patch, self.patch * ft)
+            n = tokens.shape[1]
+            if seq_group is None:
+                pos = self.positions(n, tokens.device)
+            else:
+                i = dist.get_rank(seq_group)
+                pos = self.positions(n * dist.get_world_size(seq_group),
+                                     tokens.device)[i * n:(i + 1) * n]
+            with fp32_exact():
+                h = self.embed(tokens) + pos
+                for i in range(self.n_layers):
+                    ln_a = getattr(self, f"LayerNorm_{2 * i}")
+                    ln_f = getattr(self, f"LayerNorm_{2 * i + 1}")
+                    h = h + getattr(self, f"attn_{i}")(ln_a(h), seq_group)
+                    f = getattr(self, f"ff1_{i}")(ln_f(h))
+                    h = h + getattr(self, f"ff2_{i}")(gelu(f))
+                pooled = torch.mean(h, dim=1)
+                if seq_group is not None:
+                    pooled = (all_reduce_sum(pooled, seq_group)
+                              / dist.get_world_size(seq_group))
+                return self.out(pooled)
 
 
 class LongBNSNPEv4(nn.Module):
@@ -779,12 +782,13 @@ class LongBNSNPEv4(nn.Module):
         """-> (physical draws [B, n, 11], raw normalized draws y [B, n, 11]
         before the wrap). Base draws z [B, n, 11] from `generator` unless
         given."""
-        ctx = self.context(tokens, trig)
-        if z is None:
-            z = torch.randn((ctx.shape[0], n_samples, 11),
-                            generator=generator, device=ctx.device)
-        y, _ = self.flow.sample_with_log_prob(z, ctx[:, None, :])
-        return self.scaler.denormalize(y, trig[:, None, :]), y
+        with span("pf.lbns.sample"):
+            ctx = self.context(tokens, trig)
+            if z is None:
+                z = torch.randn((ctx.shape[0], n_samples, 11),
+                                generator=generator, device=ctx.device)
+            y, _ = self.flow.sample_with_log_prob(z, ctx[:, None, :])
+            return self.scaler.denormalize(y, trig[:, None, :]), y
 
     def sample(self, tokens: torch.Tensor, trig: torch.Tensor,
                n_samples: int = 128,

@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 
 from posteriflow_torch.ops import rqs as plain
+from posteriflow_torch.utils.logging import span
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "rqs.cu"
@@ -400,56 +401,59 @@ class RqsForwardFn(torch.autograd.Function):
             raise RuntimeError("the CUDA RQS backward kernel has no "
                                "derivative of its own: take the gradient "
                                "without create_graph")
-        x, raw, bias = ctx.saved_tensors
-        g_out = (torch.zeros_like(x) if g_out is None
-                 else g_out.float().contiguous())
-        g_logdet = (x.new_zeros(x.shape[0]) if g_logdet is None
-                    else g_logdet.float().contiguous())
-        # forward checked x, raw and bias (saved unchanged: autograd checks
-        # their versions); the upstream gradients are new here
-        _check_upstream(x, g_out, g_logdet)
-        g_x, g_raw = GRAD_KERNEL._launch(x, raw, g_out, g_logdet,
-                                         *ctx.spline, bias)
+        with span("pf.rqs.grad"):
+            x, raw, bias = ctx.saved_tensors
+            g_out = (torch.zeros_like(x) if g_out is None
+                     else g_out.float().contiguous())
+            g_logdet = (x.new_zeros(x.shape[0]) if g_logdet is None
+                        else g_logdet.float().contiguous())
+            # forward checked x, raw and bias (saved unchanged: autograd
+            # checks their versions); the upstream gradients are new here
+            _check_upstream(x, g_out, g_logdet)
+            g_x, g_raw = GRAD_KERNEL._launch(x, raw, g_out, g_logdet,
+                                             *ctx.spline, bias)
         return g_x, g_raw, None, None, None
 
 
 def _rqs(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
          tail_bound: float, inverse: bool, bias: Optional[torch.Tensor]):
-    if x.device.type == "cpu":
-        fn = plain.rqs_inverse if inverse else plain.rqs_forward
-        if bias is not None:
-            raw_params = raw_params + bias
-        return fn(x, raw_params, num_bins, tail_bound)
-    if x.device.type != "cuda":
-        raise ValueError(f"no RQS implementation for device {x.device}")
-    differentiate = torch.is_grad_enabled() and (
-        x.requires_grad or raw_params.requires_grad)
-    if torch.is_grad_enabled() and (
-            (inverse and differentiate)
-            or (bias is not None and bias.requires_grad)):
-        # the kernel writes its outputs through raw pointers, so autograd
-        # would see no graph and a loss would lose these gradients silently
-        raise RuntimeError("the CUDA RQS kernel has no backward for the "
-                           + ("inverse" if inverse else "derivative bias, a "
-                              "constant")
-                           + ": call it under torch.no_grad(), or on inputs "
-                             "that do not require grad")
-    batch, d = x.shape[:-1], x.shape[-1]
-    n_raw = 3 * num_bins - 1
-    if tuple(raw_params.shape) != (*batch, d, n_raw):
-        raise ValueError(f"raw_params must be {(*batch, d, n_raw)}, got "
-                         f"{tuple(raw_params.shape)}")
-    x2 = x.reshape(-1, d).contiguous()
-    if x2.data_ptr() % 16 != 0:          # a view into x: copy its N·D floats
-        x2 = x2.clone()
-    raw2 = raw_params.reshape(x2.shape[0], d * n_raw).contiguous()
-    if differentiate:
-        out, logdet = RqsForwardFn.apply(x2, raw2, num_bins, tail_bound,
-                                         bias)
-    else:
-        out, logdet = KERNEL.launch(x2, raw2, num_bins, tail_bound, inverse,
-                                    bias)
-    return out.reshape(*batch, d), logdet.reshape(batch)
+    with span("pf.rqs"):
+        if x.device.type == "cpu":
+            fn = plain.rqs_inverse if inverse else plain.rqs_forward
+            if bias is not None:
+                raw_params = raw_params + bias
+            return fn(x, raw_params, num_bins, tail_bound)
+        if x.device.type != "cuda":
+            raise ValueError(f"no RQS implementation for device {x.device}")
+        differentiate = torch.is_grad_enabled() and (
+            x.requires_grad or raw_params.requires_grad)
+        if torch.is_grad_enabled() and (
+                (inverse and differentiate)
+                or (bias is not None and bias.requires_grad)):
+            # the kernel writes its outputs through raw pointers, so
+            # autograd would see no graph and a loss would lose these
+            # gradients silently
+            raise RuntimeError("the CUDA RQS kernel has no backward for the "
+                               + ("inverse" if inverse
+                                  else "derivative bias, a constant")
+                               + ": call it under torch.no_grad(), or on "
+                                 "inputs that do not require grad")
+        batch, d = x.shape[:-1], x.shape[-1]
+        n_raw = 3 * num_bins - 1
+        if tuple(raw_params.shape) != (*batch, d, n_raw):
+            raise ValueError(f"raw_params must be {(*batch, d, n_raw)}, got "
+                             f"{tuple(raw_params.shape)}")
+        x2 = x.reshape(-1, d).contiguous()
+        if x2.data_ptr() % 16 != 0:      # a view into x: copy its N·D floats
+            x2 = x2.clone()
+        raw2 = raw_params.reshape(x2.shape[0], d * n_raw).contiguous()
+        if differentiate:
+            out, logdet = RqsForwardFn.apply(x2, raw2, num_bins, tail_bound,
+                                             bias)
+        else:
+            out, logdet = KERNEL.launch(x2, raw2, num_bins, tail_bound,
+                                        inverse, bias)
+        return out.reshape(*batch, d), logdet.reshape(batch)
 
 
 def rqs_forward(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,

@@ -57,6 +57,7 @@ from posteriflow_torch.physics.waveforms.tidal import phenomd_matter_amp_phase
 from posteriflow_torch.physics.whiten import fd_white_to_td
 from posteriflow_torch.prior import PriorConfig, loudness, sample_batch
 from posteriflow_torch.utils.constants import device_constant
+from posteriflow_torch.utils.logging import span
 
 _FREQS_NP = np.asarray(FREQS, dtype=np.float32)
 _SQRT_4DF = float(np.sqrt(4.0 * DELTA_F))
@@ -182,9 +183,10 @@ def real_noise(real_draws: RealDraws, bank: Optional[NoiseBank] = None,
                real_feed=None) -> RealNoise:
     """The real noise of the draws: the feed's (noise, recolor, bands) if
     given, else the bank's crops."""
-    if real_feed is None:
-        real_feed = real_noise_from_draws(bank, real_draws.crop)
-    return RealNoise(real_draws.use_u, *real_feed)
+    with span("pf.sim.crops"):
+        if real_feed is None:
+            real_feed = real_noise_from_draws(bank, real_draws.crop)
+        return RealNoise(real_draws.use_u, *real_feed)
 
 
 def _freqs(device, decimate: int = 1) -> torch.Tensor:
@@ -377,44 +379,47 @@ def simulate_from_draws(pre, draws: SimDraws, cfg: SimConfig,
     cfg.real_noise_prob takes the real crop as its noise, the crop
     time-flipped and negated as its dropout fill, its signal spectrum
     times the segment's filter, and the segment's asd_bands."""
-    params, sig_fd, sig_snr, n_valid = pre
-    dev = sig_fd.device
-    keep_cfgs = device_constant("keep_configs", dev, lambda: torch.tensor(
-        _KEEP_CONFIGS, dtype=torch.float32))
-    drop = draws.drop_u < cfg.det_dropout
-    det_mask = torch.where(drop[..., None], keep_cfgs[draws.keep_idx],
-                           torch.ones(N_DETECTORS, device=dev))
+    with span("pf.sim.assemble"):
+        params, sig_fd, sig_snr, n_valid = pre
+        dev = sig_fd.device
+        keep_cfgs = device_constant("keep_configs", dev, lambda: torch.tensor(
+            _KEEP_CONFIGS, dtype=torch.float32))
+        drop = draws.drop_u < cfg.det_dropout
+        det_mask = torch.where(drop[..., None], keep_cfgs[draws.keep_idx],
+                               torch.ones(N_DETECTORS, device=dev))
 
-    # network SNR over kept detectors, in FD with the one-sided DC and
-    # Nyquist half-weights
-    e_det = (torch.sum(torch.abs(sig_fd) ** 2, dim=-1)
-             - 0.5 * torch.abs(sig_fd[..., 0]) ** 2
-             - 0.5 * torch.abs(sig_fd[..., -1]) ** 2)
-    net_snr = torch.sqrt(torch.sum(det_mask * e_det, dim=-1))
+        # network SNR over kept detectors, in FD with the one-sided DC and
+        # Nyquist half-weights
+        e_det = (torch.sum(torch.abs(sig_fd) ** 2, dim=-1)
+                 - 0.5 * torch.abs(sig_fd[..., 0]) ** 2
+                 - 0.5 * torch.abs(sig_fd[..., -1]) ** 2)
+        net_snr = torch.sqrt(torch.sum(det_mask * e_det, dim=-1))
 
-    noise, fill = draws.noise, draws.fill
-    asd_bands = torch.zeros(det_mask.shape + (cfg.psd_bands,),
-                            dtype=torch.float32, device=dev)
-    if real is not None:
-        use = (real.use_u < cfg.real_noise_prob)[..., None]     # [..., 1]
-        noise = torch.where(use[..., None], real.noise, noise)
-        fill = torch.where(use[..., None], -real.noise.flip(-1), fill)
-        # re-colouring is diagonal in frequency: it folds into the spectrum
-        # before the one transform to the time domain
-        sig_fd = torch.where(use[..., None], sig_fd * real.recolor, sig_fd)
-        asd_bands = torch.where(use[..., None], real.asd_bands, asd_bands)
-    sig_td = fd_white_to_td(sig_fd, N_SAMPLES)                 # [..., D, T]
-    if cfg.glitch_prob > 0.0:
-        noise = noise + _glitch_burst(draws, cfg.glitch_prob)
-    if cfg.add_noise:
-        strain = torch.where(det_mask[..., None] > 0, noise + sig_td,
-                             fill)
-    else:
-        strain = sig_td * det_mask[..., None]
-    asd_bands = asd_bands * det_mask[..., None]
-    return EventBatch(strain.to(torch.float32), params, n_valid,
-                      net_snr.to(torch.float32), sig_snr, asd_bands,
-                      det_mask)
+        noise, fill = draws.noise, draws.fill
+        asd_bands = torch.zeros(det_mask.shape + (cfg.psd_bands,),
+                                dtype=torch.float32, device=dev)
+        if real is not None:
+            use = (real.use_u < cfg.real_noise_prob)[..., None]     # [..., 1]
+            noise = torch.where(use[..., None], real.noise, noise)
+            fill = torch.where(use[..., None], -real.noise.flip(-1), fill)
+            # re-colouring is diagonal in frequency: it folds into the
+            # spectrum before the one transform to the time domain
+            sig_fd = torch.where(use[..., None], sig_fd * real.recolor,
+                                 sig_fd)
+            asd_bands = torch.where(use[..., None], real.asd_bands,
+                                    asd_bands)
+        sig_td = fd_white_to_td(sig_fd, N_SAMPLES)             # [..., D, T]
+        if cfg.glitch_prob > 0.0:
+            noise = noise + _glitch_burst(draws, cfg.glitch_prob)
+        if cfg.add_noise:
+            strain = torch.where(det_mask[..., None] > 0, noise + sig_td,
+                                 fill)
+        else:
+            strain = sig_td * det_mask[..., None]
+        asd_bands = asd_bands * det_mask[..., None]
+        return EventBatch(strain.to(torch.float32), params, n_valid,
+                          net_snr.to(torch.float32), sig_snr, asd_bands,
+                          det_mask)
 
 
 def simulate_event(params: torch.Tensor, n_sig, asd: torch.Tensor,
@@ -448,16 +453,17 @@ def gated_signal_sum(params: torch.Tensor, n_sig: torch.Tensor,
     every slot, the gate, then every slot's whitened waveform and the
     masked slot sum. -> (params_ranked, sig_fd [B, D, F], snr_ranked,
     n_valid)."""
-    b, s, p = params.shape
-    flat = params.reshape(b * s, p)
-    snr = signal_snr_amp_only(flat, asd, cfg.f_lower,
-                              decimate=4 if p < 15 else 2).reshape(b, s)
-    params_r, keep, snr_r, n_valid = _gate_from_snr(params, snr, n_sig,
-                                                    cfg.min_snr)
-    h_w = signal_white_fd(flat, asd, cfg.f_lower).reshape(
-        b, s, N_DETECTORS, -1)
-    sig_fd = torch.sum(keep[:, :, None, None] * h_w, dim=1)
-    return params_r, sig_fd, snr_r, n_valid
+    with span("pf.sim.waveform"):
+        b, s, p = params.shape
+        flat = params.reshape(b * s, p)
+        snr = signal_snr_amp_only(flat, asd, cfg.f_lower,
+                                  decimate=4 if p < 15 else 2).reshape(b, s)
+        params_r, keep, snr_r, n_valid = _gate_from_snr(params, snr, n_sig,
+                                                        cfg.min_snr)
+        h_w = signal_white_fd(flat, asd, cfg.f_lower).reshape(
+            b, s, N_DETECTORS, -1)
+        sig_fd = torch.sum(keep[:, :, None, None] * h_w, dim=1)
+        return params_r, sig_fd, snr_r, n_valid
 
 
 def simulate_batch(batch_size: int, cfg: SimConfig = SimConfig(),
@@ -476,19 +482,22 @@ def simulate_batch(batch_size: int, cfg: SimConfig = SimConfig(),
     from data/host_feed.py mix in real noise with cfg.real_noise_prob (the
     feed takes precedence); their draws (`real_draws`, else drawn after
     the others) are made only then."""
-    device = torch.device(device)
-    if asd is None:
-        asd = design_asd(device)
-    if params is None:
-        params, n_sig = sample_batch(batch_size, cfg.prior, generator,
-                                     device)
-    if draws is None:
-        draws = draw_events((batch_size,), generator, device)
-    real = None
-    if mixes_real_noise(cfg, bank, real_feed):
-        if real_draws is None:
-            real_draws = draw_real((batch_size,), generator, device,
-                                   None if real_feed is not None else bank)
-        real = real_noise(real_draws, bank, real_feed)
-    pre = gated_signal_sum(params, n_sig, asd, cfg)
-    return simulate_from_draws(pre, draws, cfg, real)
+    with span("pf.sim.batch"):
+        device = torch.device(device)
+        if asd is None:
+            asd = design_asd(device)
+        if params is None:
+            with span("pf.sim.prior"):
+                params, n_sig = sample_batch(batch_size, cfg.prior,
+                                             generator, device)
+        if draws is None:
+            draws = draw_events((batch_size,), generator, device)
+        real = None
+        if mixes_real_noise(cfg, bank, real_feed):
+            if real_draws is None:
+                real_draws = draw_real((batch_size,), generator, device,
+                                       None if real_feed is not None
+                                       else bank)
+            real = real_noise(real_draws, bank, real_feed)
+        pre = gated_signal_sum(params, n_sig, asd, cfg)
+        return simulate_from_draws(pre, draws, cfg, real)

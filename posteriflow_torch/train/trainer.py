@@ -47,6 +47,7 @@ from posteriflow_torch.physics.simulator import (EventBatch, SimConfig,
                                                  simulate_batch)
 from posteriflow_torch.prior import sample_batch
 from posteriflow_torch.train.checkpoints import flax_view
+from posteriflow_torch.utils.logging import span
 from posteriflow_torch.utils.precision import fp32_exact
 
 # optax.adamw's defaults, and adaptive_grad_clip's
@@ -240,10 +241,11 @@ class Optimizer:
     def step(self):
         """One update: clip, Adam moments with bias correction, decoupled
         weight decay, the schedule's lr at the current count."""
-        grads = self.grads()
-        self.clip_(grads)
-        adam_update_(self.params, grads, self.mu, self.nu, self.count + 1,
-                     self.lr(), self.cfg.weight_decay)
+        with span("pf.train.adamw"):
+            grads = self.grads()
+            self.clip_(grads)
+            adam_update_(self.params, grads, self.mu, self.nu,
+                         self.count + 1, self.lr(), self.cfg.weight_decay)
         self.count += 1
 
     def zero_grad(self):
@@ -301,24 +303,25 @@ def batch_nll(model: LeanNPE, batch: EventBatch,
     the masked sum is divided by the live slots of the whole batch (summed
     over the group, no gradient), so that the group's results sum to the
     global mean, as GSPMD's is one mean over the global batch."""
-    asd = batch.asd_bands if model.cfg.uses_asd_bands else None
-    context = model.encode(batch.strain, asd)
-    b, s, p = batch.params.shape
-    ctx_rep = torch.repeat_interleave(context, s, dim=0)        # [B·S, C]
-    theta = batch.params.reshape(b * s, p)
-    slots = torch.arange(s, device=context.device)
-    ranks = slots.repeat(b)
-    nll_all = model.nll_from_context(ctx_rep, theta, ranks).reshape(b, s)
-    mask = (slots[None, :] < batch.n_sig[:, None]).float()
-    count = torch.sum(mask)
-    if group is not None:
-        count = all_reduce_sum(count, group)
-    return torch.sum(nll_all * mask) / torch.clamp(count, min=1.0)
+    with span("pf.train.nll"):
+        asd = batch.asd_bands if model.cfg.uses_asd_bands else None
+        context = model.encode(batch.strain, asd)
+        b, s, p = batch.params.shape
+        ctx_rep = torch.repeat_interleave(context, s, dim=0)        # [B·S, C]
+        theta = batch.params.reshape(b * s, p)
+        slots = torch.arange(s, device=context.device)
+        ranks = slots.repeat(b)
+        nll_all = model.nll_from_context(ctx_rep, theta, ranks).reshape(b, s)
+        mask = (slots[None, :] < batch.n_sig[:, None]).float()
+        count = torch.sum(mask)
+        if group is not None:
+            count = all_reduce_sum(count, group)
+        return torch.sum(nll_all * mask) / torch.clamp(count, min=1.0)
 
 
 def backward(loss: torch.Tensor):
     """loss.backward() with TF32 off for the float32 convs and matmuls."""
-    with fp32_exact():
+    with span("pf.train.backward"), fp32_exact():
         loss.backward()
 
 
@@ -343,25 +346,27 @@ def train_step(state: TrainState, batch: EventBatch,
     the gradients are summed over the group after the backward, so that
     the clip, the norms and the update see the global batch's gradient
     identically on every rank, and the metrics are the global batch's."""
-    state.opt.zero_grad()
-    loss = batch_nll(state.model, batch, group)
-    backward(loss)
-    if group is not None:
-        all_reduce_grads(state.opt.params, group)
-    grads = state.opt.grads()
-    loss = loss.detach()
-    mean_nsig = batch.n_sig.float().mean()
-    mean_snr = batch.net_snr.mean()
-    if group is not None:
-        stats = all_reduce_sum(torch.stack([loss, mean_nsig, mean_snr]),
-                               group)
-        loss = stats[0]
-        mean_nsig, mean_snr = stats[1:] / dist.get_world_size(group)
-    metrics = {"nll": loss, "grad_norm": global_norm(grads),
-               "mean_nsig": mean_nsig, "mean_snr": mean_snr}
-    metrics.update(component_grad_norms(state.model))
-    state.opt.step()
-    return metrics
+    with span("pf.train.step"):
+        state.opt.zero_grad()
+        loss = batch_nll(state.model, batch, group)
+        backward(loss)
+        if group is not None:
+            all_reduce_grads(state.opt.params, group)
+        grads = state.opt.grads()
+        loss = loss.detach()
+        mean_nsig = batch.n_sig.float().mean()
+        mean_snr = batch.net_snr.mean()
+        if group is not None:
+            stats = all_reduce_sum(torch.stack([loss, mean_nsig, mean_snr]),
+                                   group)
+            loss = stats[0]
+            mean_nsig, mean_snr = stats[1:] / dist.get_world_size(group)
+        with span("pf.train.grad_norms"):
+            metrics = {"nll": loss, "grad_norm": global_norm(grads),
+                       "mean_nsig": mean_nsig, "mean_snr": mean_snr}
+            metrics.update(component_grad_norms(state.model))
+        state.opt.step()
+        return metrics
 
 
 def step_seed(seed: int, epoch: int, step: int) -> int:

@@ -182,16 +182,18 @@ def test_train_npe_from_yaml_with_overrides_and_a_trace(tmp_path):
                                               ("cuda", "CUDA")])
 def test_torch_trace_records_the_run_devices_activity(device, activity,
                                                       monkeypatch, tmp_path):
-    """The trace records the card's activity for a run on the card and
-    the host's for a run on the CPU, whatever the machine has."""
+    """The trace records the card's activity for a run on the card, with
+    the host's pf.* spans and no host operator (UserScopeProfile), and
+    the host's operators for a run on the CPU, whatever the machine
+    has."""
     from torch import profiler
 
     from posteriflow_torch.utils import logging as plog
     seen = []
 
     class Recorder:
-        def __init__(self, activities):
-            seen.append([a.name for a in activities])
+        def __init__(self, kind, activities):
+            seen.append((kind, sorted(a.name for a in activities)))
 
         def __enter__(self):
             return self
@@ -202,8 +204,12 @@ def test_torch_trace_records_the_run_devices_activity(device, activity,
         def export_chrome_trace(self, path):
             Path(path).write_text("{}")
 
-    monkeypatch.setattr(profiler, "profile", Recorder)
+    monkeypatch.setattr(profiler, "profile",
+                        lambda activities: Recorder("all", activities))
+    monkeypatch.setattr(plog, "UserScopeProfile",
+                        lambda activities: Recorder("user", activities))
     with plog.torch_trace(str(tmp_path), device) as trace:
         trace.stop()
-    assert seen == [[activity]]
+    assert seen == ([("all", [activity])] if activity == "CPU"
+                    else [("user", ["CPU", activity])])
     assert (tmp_path / "trace.json").exists()
