@@ -19,6 +19,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from posteriflow_torch.inference.encoder_graphs import ServedEncoder, to_device
 from posteriflow_torch.inference.gating import load_bias_map, refinement_gate
 from posteriflow_torch.inference.ood import (ContextStats, confidence_verdict,
                                              score_context)
@@ -29,7 +30,7 @@ from posteriflow_torch.inference.result import PosteriorResult
 from posteriflow_torch.models.npe import LeanNPE, NPEConfig
 from posteriflow_torch.train.checkpoints import (load_checkpoint_model,
                                                  load_release)
-from posteriflow_torch.utils.logging import count_h2d, span
+from posteriflow_torch.utils.logging import span
 
 
 def _sync(device: torch.device):
@@ -52,6 +53,8 @@ class InferenceEngine:
         self.scaler = self.model.scaler
         self.ood_stats = ood_stats
         self.bias_map = bias_map
+        self.served_encoder = (ServedEncoder(self.model.encoder, self.device)
+                               if self.device.type == "cuda" else None)
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir, name: str = "best", device="cuda"):
@@ -77,17 +80,14 @@ class InferenceEngine:
     @torch.no_grad()
     def encode(self, strain, asd_bands) -> torch.Tensor:
         """strain [B, 3, T], asd_bands [B, 3, K] (numpy or tensors) ->
-        context [B, C] on the engine's device."""
+        context [B, C] on the engine's device, a tensor of the caller's
+        own. On a card a shape met before replays CUDA graphs of the
+        encoder (inference/encoder_graphs.py)."""
         with span("pf.npe.encode"):
-            count_h2d(strain, self.device)
-            s = torch.as_tensor(strain, dtype=torch.float32,
-                                device=self.device)
-            asd = None
-            if self.cfg.uses_asd_bands:
-                count_h2d(asd_bands, self.device)
-                asd = torch.as_tensor(asd_bands, dtype=torch.float32,
-                                      device=self.device)
-            return self.model.encode(s, asd)
+            bands = asd_bands if self.cfg.uses_asd_bands else None
+            if self.served_encoder is not None:
+                return self.served_encoder(strain, bands)
+            return self.model.encode(*to_device(strain, bands, self.device))
 
     @torch.no_grad()
     def sample_posterior(self, context: torch.Tensor, rank: int,

@@ -22,7 +22,7 @@ fusion_0.MultiHeadDotProductAttention_0.query, ...).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +31,8 @@ from torch import nn
 from posteriflow_torch.models.flow import DTYPES, dense, gelu, in_dtype
 from posteriflow_torch.physics.constants import (F_LOWER, F_UPPER, N_SAMPLES,
                                                  SAMPLE_RATE)
-from posteriflow_torch.utils.logging import count_h2d, span
+from posteriflow_torch.utils.constants import device_constant
+from posteriflow_torch.utils.logging import span
 from posteriflow_torch.utils.precision import fp32_exact
 
 STEM_SCHEDULE = ((32, 64, 8), (64, 16, 4), (128, 8, 4))   # (out, k, stride)
@@ -188,11 +189,6 @@ class LeanStrainEncoder(nn.Module):
         self.out_fc1 = nn.Linear(n_feat, 512)
         self.out_fc2 = nn.Linear(512, context_dim)
 
-    def geometry_tokens(self, strain: torch.Tensor) -> Optional[torch.Tensor]:
-        """Subclass hook: [B, n, d_model] tokens put before the strain
-        tokens."""
-        return None
-
     def forward(self, strain: torch.Tensor,
                 asd_bands: Optional[torch.Tensor] = None) -> torch.Tensor:
         with span("pf.encoder"), fp32_exact():
@@ -200,48 +196,79 @@ class LeanStrainEncoder(nn.Module):
 
     def _forward(self, strain: torch.Tensor,
                  asd_bands: Optional[torch.Tensor]) -> torch.Tensor:
+        x = {"strain": strain, "bands": asd_bands}
+        for name, step in self.parts():
+            with span(name):
+                step(x)
+        return x["context"]
+
+    def parts(self) -> List[Tuple[str, Callable[[dict], None]]]:
+        """The forward in order, as (span name, step). A step reads and
+        adds entries of one dict of tensors, which starts as {"strain",
+        "bands"} and ends holding "context"; no step reads what a later
+        one adds. The served path (inference/encoder_graphs.py) captures
+        each step as a CUDA graph of its own."""
+        return [("pf.encoder.energy", self._energy),
+                ("pf.encoder.stem", self._stem),
+                ("pf.encoder.fusion", self._fusion),
+                ("pf.encoder.head", self._head)]
+
+    def positions(self, length: int, device) -> torch.Tensor:
+        """sinusoidal_positions(length, d_model) on `device`, made there
+        once (utils/constants.device_constant): a copy from pageable memory
+        waits for the stream, and a CUDA graph cannot hold one."""
+        return device_constant(
+            ("encoder_pos", length, self.d_model), device,
+            lambda: torch.from_numpy(sinusoidal_positions(length,
+                                                          self.d_model)))
+
+    def _energy(self, x: dict):
+        """The input made finite and clamped ("clean"), and the log-energy
+        branch on it ("energy")."""
+        strain = torch.clamp(torch.nan_to_num(x["strain"], nan=0.0,
+                                              posinf=100.0, neginf=-100.0),
+                             -100.0, 100.0)
         b, d, t = strain.shape
-        strain = torch.clamp(torch.nan_to_num(strain, nan=0.0, posinf=100.0,
-                                              neginf=-100.0), -100.0, 100.0)
+        w = self.n_energy_windows
+        win = strain[..., : (t // w) * w].reshape(b, d, w, -1)
+        e = torch.log(torch.mean(win ** 2, dim=-1) + 1e-8).reshape(b, -1)
+        x["clean"] = strain
+        x["energy"] = gelu(self.energy_fc2(gelu(self.energy_fc1(e))))
 
-        # energy branch from raw strain
-        with span("pf.encoder.energy"):
-            w = self.n_energy_windows
-            win = strain[..., : (t // w) * w].reshape(b, d, w, -1)
-            e = torch.log(torch.mean(win ** 2, dim=-1) + 1e-8).reshape(b, -1)
-            energy_feat = gelu(self.energy_fc2(gelu(self.energy_fc1(e))))
+    def _stem(self, x: dict):
+        """The token branch on asinh-compressed strain, after the geometry
+        tokens if there are any ("tokens")."""
+        strain = x["clean"]
+        b, d, t = strain.shape
+        tokens = self.stem(torch.asinh(strain).reshape(b * d, t))
+        length = tokens.shape[1]
+        tokens = tokens + self.positions(length, strain.device)[None]
+        tokens = tokens.reshape(b, d, length, self.d_model)
+        tokens = tokens + self.detector_embed[None, :, None, :]
+        tokens = tokens.reshape(b, d * length, self.d_model)
+        if "geometry" in x:
+            tokens = torch.cat([x["geometry"], tokens], dim=1)
+        x["tokens"] = tokens.float()
 
-        extra = self.geometry_tokens(strain)
+    def _fusion(self, x: dict):
+        tokens = x["tokens"]
+        for i in range(self.n_layers):
+            tokens = getattr(self, f"fusion_{i}")(tokens)
+        x["fused"] = tokens
 
-        # token branch on asinh-compressed strain
-        with span("pf.encoder.stem"):
-            tokens = self.stem(torch.asinh(strain).reshape(b * d, t))
-            length = tokens.shape[1]
-            pe = sinusoidal_positions(length, self.d_model)
-            count_h2d(pe, strain.device)
-            pe = torch.as_tensor(pe, device=strain.device)
-            tokens = tokens + pe[None]                            # float32
-            tokens = tokens.reshape(b, d, length, self.d_model)
-            tokens = tokens + self.detector_embed[None, :, None, :]
-            tokens = tokens.reshape(b, d * length, self.d_model)
-            if extra is not None:
-                tokens = torch.cat([extra, tokens], dim=1)
-            tokens = tokens.float()
-        with span("pf.encoder.fusion"):
-            for i in range(self.n_layers):
-                tokens = getattr(self, f"fusion_{i}")(tokens)
-
-        with span("pf.encoder.head"):
-            feats = [self.pool(tokens), energy_feat]
-            if self.psd_bands > 0:
-                if asd_bands is None:        # zeros = design sensitivity
-                    asd_bands = torch.zeros(b, self.n_detectors,
-                                            self.psd_bands,
-                                            device=strain.device)
-                a = gelu(self.noise_fc1(asd_bands.reshape(b, -1)))
-                feats.append(gelu(self.noise_fc2(a)))
-            h = gelu(self.out_fc1(torch.cat(feats, dim=-1)))
-            return self.out_fc2(h)
+    def _head(self, x: dict):
+        tokens = x["fused"]
+        b = tokens.shape[0]
+        feats = [self.pool(tokens), x["energy"]]
+        if self.psd_bands > 0:
+            asd_bands = x["bands"]
+            if asd_bands is None:        # zeros = design sensitivity
+                asd_bands = torch.zeros(b, self.n_detectors, self.psd_bands,
+                                        device=tokens.device)
+            a = gelu(self.noise_fc1(asd_bands.reshape(b, -1)))
+            feats.append(gelu(self.noise_fc2(a)))
+        h = gelu(self.out_fc1(torch.cat(feats, dim=-1)))
+        x["context"] = self.out_fc2(h)
 
 
 class CoherentEncoder(LeanStrainEncoder):
@@ -290,45 +317,52 @@ class CoherentEncoder(LeanStrainEncoder):
         self.geom_to_tokens = nn.Linear(geom_hidden,
                                         n_geom_tokens * self.d_model)
 
+    def parts(self) -> List[Tuple[str, Callable[[dict], None]]]:
+        energy, *rest = super().parts()
+        return [energy, ("pf.encoder.geometry", self._geometry)] + rest
+
+    def _geometry(self, x: dict):
+        x["geometry"] = self.geometry_tokens(x["clean"])
+
     def geometry_tokens(self, strain: torch.Tensor) -> torch.Tensor:
-        with span("pf.encoder.geometry"):
-            b = strain.shape[0]
-            # unitary
-            fd = torch.fft.rfft(strain, dim=-1) / math.sqrt(N_SAMPLES)
-            dslice = fd[..., self.lo:self.lo + self.nf]          # [B, D, Nf]
-            dr, di = dslice.real, dslice.imag
-            power = dr ** 2 + di ** 2
-            amp = torch.sqrt(power + 1e-12)
-            bsum_t = self.bsum.T
-            e_band = (power @ bsum_t) / self.bcount
-            feats = [torch.log(e_band + 1e-8).reshape(b, -1)]
+        """[B, n_geom_tokens, d_model] tokens from clean strain."""
+        b = strain.shape[0]
+        # unitary
+        fd = torch.fft.rfft(strain, dim=-1) / math.sqrt(N_SAMPLES)
+        dslice = fd[..., self.lo:self.lo + self.nf]          # [B, D, Nf]
+        dr, di = dslice.real, dslice.imag
+        power = dr ** 2 + di ** 2
+        amp = torch.sqrt(power + 1e-12)
+        bsum_t = self.bsum.T
+        e_band = (power @ bsum_t) / self.bcount
+        feats = [torch.log(e_band + 1e-8).reshape(b, -1)]
 
-            for i in range(self.n_detectors):
-                for j in range(i + 1, self.n_detectors):
-                    # Re(d_i d_j*), Im(d_i d_j*)
-                    xr = dr[:, i] * dr[:, j] + di[:, i] * di[:, j]
-                    xi = di[:, i] * dr[:, j] - dr[:, i] * di[:, j]
-                    num_r = xr @ bsum_t
-                    num_i = xi @ bsum_t
-                    den = (amp[:, i] * amp[:, j]) @ bsum_t + 1e-8
-                    gr, gi = num_r / den, num_i / den
-                    gmag = torch.sqrt(gr ** 2 + gi ** 2) + 1e-8
-                    feats += [gmag, gr / gmag, gi / gmag]
+        for i in range(self.n_detectors):
+            for j in range(i + 1, self.n_detectors):
+                # Re(d_i d_j*), Im(d_i d_j*)
+                xr = dr[:, i] * dr[:, j] + di[:, i] * di[:, j]
+                xi = di[:, i] * dr[:, j] - dr[:, i] * di[:, j]
+                num_r = xr @ bsum_t
+                num_i = xi @ bsum_t
+                den = (amp[:, i] * amp[:, j]) @ bsum_t + 1e-8
+                gr, gi = num_r / den, num_i / den
+                gmag = torch.sqrt(gr ** 2 + gi ** 2) + 1e-8
+                feats += [gmag, gr / gmag, gi / gmag]
 
-                    # GCC delay: the lag-limited cross-correlation as a
-                    # matmul, [B, lags]
-                    a = torch.abs(xr @ self.cos_l - xi @ self.sin_l)
-                    tau = self.lags_norm[torch.argmax(a, dim=-1)][:, None]
-                    peak = (torch.amax(a, dim=-1)
-                            / (torch.mean(a, dim=-1) + 1e-8))[:, None]
-                    feats += [tau, peak]
+                # GCC delay: the lag-limited cross-correlation as a
+                # matmul, [B, lags]
+                a = torch.abs(xr @ self.cos_l - xi @ self.sin_l)
+                tau = self.lags_norm[torch.argmax(a, dim=-1)][:, None]
+                peak = (torch.amax(a, dim=-1)
+                        / (torch.mean(a, dim=-1) + 1e-8))[:, None]
+                feats += [tau, peak]
 
-                    ei = torch.sum(power[:, i], dim=-1)
-                    ej = torch.sum(power[:, j], dim=-1)
-                    feats.append((torch.log(ei + 1e-8)
-                                  - torch.log(ej + 1e-8))[:, None])
+                ei = torch.sum(power[:, i], dim=-1)
+                ej = torch.sum(power[:, j], dim=-1)
+                feats.append((torch.log(ei + 1e-8)
+                              - torch.log(ej + 1e-8))[:, None])
 
-            g = gelu(self.geom_fc1(torch.cat(feats, dim=-1)))
-            g = gelu(self.geom_fc2(g))
-            g = self.geom_to_tokens(g)
-            return g.reshape(b, self.n_geom_tokens, self.d_model)
+        g = gelu(self.geom_fc1(torch.cat(feats, dim=-1)))
+        g = gelu(self.geom_fc2(g))
+        g = self.geom_to_tokens(g)
+        return g.reshape(b, self.n_geom_tokens, self.d_model)

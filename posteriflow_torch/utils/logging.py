@@ -5,10 +5,11 @@ The JAX package also silences absl, orbax and jax there; the port imports
 none of them. `torch_trace` is jax_trace's counterpart: a torch.profiler
 trace of a region, written as a Chrome trace.
 
-The span recorder (`span`, `count`, `snapshot`, `reset`) is the port's
-counterpart of JAX's TimingLogger: named regions inside the program
-(`pf.encoder`, `pf.flow.sample`, `pf.train.step`, ...), live only while a
-torch profiler records in this process. A live span is a
+The span recorder (`span`, `count`, `snapshot`, `reset`, `paused`) is
+the port's counterpart of JAX's TimingLogger: named regions inside the
+program (`pf.encoder`, `pf.flow.sample`, `pf.train.step`, ...), live only
+while a torch profiler records in this process and the thread has not
+paused it. A live span is a
 `record_function` range, so it lands in the profiler's trace on the
 kernels' clock, and a record of its host time, its device time (a pair of
 CUDA events) and the counts made inside it, which `snapshot()` totals by
@@ -275,13 +276,15 @@ class SpanRecorder:
         """A context manager around the region `name` (pf.*): live while
         a torch profiler records, else one flag check and an empty
         context manager."""
-        if not _autograd_profiler._is_profiler_enabled:
+        if (not _autograd_profiler._is_profiler_enabled
+                or getattr(self._local, "paused", False)):
             return _OFF
         return _Span(self, name)
 
     def count(self, key: str, n: float = 1):
         """Add n to `key` in the innermost live span of this thread."""
-        if not _autograd_profiler._is_profiler_enabled:
+        if (not _autograd_profiler._is_profiler_enabled
+                or getattr(self._local, "paused", False)):
             return
         stack = self._stack()
         if stack:
@@ -289,6 +292,18 @@ class SpanRecorder:
             if top.counts is None:
                 top.counts = {}
             top.counts[key] = top.counts.get(key, 0) + n
+
+    @contextlib.contextmanager
+    def paused(self):
+        """No span opens and nothing is counted on this thread inside: for
+        a CUDA graph's capture, which cannot hold a span's timing
+        events."""
+        was = getattr(self._local, "paused", False)
+        self._local.paused = True
+        try:
+            yield
+        finally:
+            self._local.paused = was
 
     def _close(self, s: _Span):
         with self._lock:
@@ -336,6 +351,7 @@ span = RECORDER.span
 count = RECORDER.count
 snapshot = RECORDER.snapshot
 reset = RECORDER.reset
+paused = RECORDER.paused
 
 
 def count_h2d(host, device) -> None:
