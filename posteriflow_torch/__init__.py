@@ -11,7 +11,7 @@ gate -> `PosteriorResult`.
 
     posteriflow_torch.physics    constants and the numpy design PSDs
     posteriflow_torch.ops        RQS: plain PyTorch version + CUDA kernel
-    posteriflow_torch.models     encoder, flow, LeanNPE, PriorityNet
+    posteriflow_torch.models     encoder, flow, LeanNPE, PriorityNet, DINGO
     posteriflow_torch.train      release loader (flax msgpack -> state_dict),
                                  the NPE and PriorityNet trainers
     posteriflow_torch.inference  prepare_real, infer(), OOD, gating, result,

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -27,6 +27,7 @@ from posteriflow_torch.inference.preprocessing import (PreparedData,
                                                        prepare_real,
                                                        prepare_simulated)
 from posteriflow_torch.inference.result import PosteriorResult
+from posteriflow_torch.models.dingo import DingoConfig, DingoNPE
 from posteriflow_torch.models.npe import LeanNPE, NPEConfig
 from posteriflow_torch.train.checkpoints import (load_checkpoint_model,
                                                  load_release)
@@ -40,21 +41,30 @@ def _sync(device: torch.device):
 
 class InferenceEngine:
     """A loaded release on one device: the model in eval mode, its scaler,
-    the OOD statistics and the amortization-bias map."""
+    the OOD statistics and the amortization-bias map.
 
-    def __init__(self, state_dict: Dict[str, torch.Tensor], cfg: NPEConfig,
+    The configuration names the model: an NPEConfig a LeanNPE, whose
+    encoder a card serves through CUDA graphs (ServedEncoder), a
+    DingoConfig a DingoNPE (models/dingo.py), whose embedding runs
+    eagerly."""
+
+    def __init__(self, state_dict: Dict[str, torch.Tensor],
+                 cfg: Union[NPEConfig, DingoConfig],
                  ood_stats: Optional[ContextStats] = None,
                  bias_map: Optional[dict] = None, device="cuda"):
         self.device = torch.device(device)
         self.cfg = cfg
-        self.model = LeanNPE(cfg)
+        self.model = (DingoNPE(cfg) if isinstance(cfg, DingoConfig)
+                      else LeanNPE(cfg))
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
         self.scaler = self.model.scaler
         self.ood_stats = ood_stats
         self.bias_map = bias_map
-        self.served_encoder = (ServedEncoder(self.model.encoder, self.device)
-                               if self.device.type == "cuda" else None)
+        self.served_encoder = (
+            ServedEncoder(self.model.encoder, self.device)
+            if self.device.type == "cuda" and isinstance(self.model, LeanNPE)
+            else None)
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir, name: str = "best", device="cuda"):
@@ -82,7 +92,8 @@ class InferenceEngine:
         """strain [B, 3, T], asd_bands [B, 3, K] (numpy or tensors) ->
         context [B, C] on the engine's device, a tensor of the caller's
         own. On a card a shape met before replays CUDA graphs of the
-        encoder (inference/encoder_graphs.py)."""
+        encoder (inference/encoder_graphs.py). For DINGO strain is
+        [B, D, 3, n_f] and asd_bands None."""
         with span("pf.npe.encode"):
             bands = asd_bands if self.cfg.uses_asd_bands else None
             if self.served_encoder is not None:
@@ -95,7 +106,10 @@ class InferenceEngine:
                          generator: Optional[torch.Generator] = None,
                          z: Optional[torch.Tensor] = None):
         """context [B, C] -> (theta [B, n, P] physical with m1 >= m2,
-        log q_phys [B, n], railed [B, n])."""
+        log q_phys [B, n], railed [B, n]) of signal `rank`."""
+        if not 0 <= rank < self.cfg.max_signals:
+            raise ValueError(f"rank {rank} outside the model's "
+                             f"{self.cfg.max_signals} signals")
         with span("pf.npe.sample"):
             r = torch.full((context.shape[0],), rank, dtype=torch.long,
                            device=context.device)

@@ -12,7 +12,10 @@ and orbax:
   - a training checkpoint is `<root>/<name>/state.pt` (the model's
     state_dict, the optimizer's moments and its step) beside `meta.json`
     in the JAX package's schema (the whole TrainConfig, the epoch and the
-    metrics). Orbax's format is not read.
+    metrics). Orbax's format is not read;
+  - DINGO (models/dingo.py) has no released weights: a directory holding
+    its meta.json alone is loaded with weights built from a seed
+    (`load_dingo`).
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from posteriflow_torch.models.dingo import (dingo_config_from_dict,
+                                            seeded_state_dict)
 from posteriflow_torch.models.encoder import MultiHeadDotProductAttention
 from posteriflow_torch.models.npe import NPEConfig
 from posteriflow_torch.physics.simulator import sim_config_from_dict
@@ -169,6 +174,14 @@ def load_release(release_dir) -> Tuple[Dict[str, torch.Tensor], NPEConfig,
     cfg = cfg_from_dict(meta["config"])
     tree = unpackb((release_dir / "params.msgpack").read_bytes())
     return flax_to_state_dict(tree), cfg, meta
+
+
+def load_dingo(model_dir, seed: int):
+    """A DINGO directory (meta.json alone) and a seed -> (state_dict from
+    the seed, DingoConfig, meta)."""
+    meta = json.loads((Path(model_dir) / "meta.json").read_text())
+    cfg = dingo_config_from_dict(meta["config"])
+    return seeded_state_dict(cfg, seed), cfg, meta
 
 
 def load_long_bns(model_dir, device="cuda"):

@@ -15,7 +15,8 @@ with tools/train_long_bns.py, builds a v3 grid and releases the run with
 tools/release_long_bns.py; it takes one data-parallel step of the
 flagship on a one-rank gloo group (parallel/mesh.py); it reads
 configs/npe_r6.yaml and exports the flagship (packb) and loads the export
-back (CheckpointManager.load_release).
+back (CheckpointManager.load_release); it builds a small dingo_nsf30
+from a seed and serves one request through InferenceEngine.
 chip_smoke.py without a GPU exits
 non-zero, fast, with no result line. A scan of the sources (the package,
 its tools and examples, and chip_smoke.py) checks what they import: h5py,
@@ -69,7 +70,8 @@ for m in mods:
     importlib.import_module(m)
 
 import chip_smoke
-from posteriflow_torch.inference.pipeline import infer, load_model
+from posteriflow_torch.inference.pipeline import (InferenceEngine, infer,
+                                                 load_model)
 eng = load_model("model_release/npe_r7_best", device="cpu")
 res = infer(eng, strain=chip_smoke.coloured_noise(seed=1), n_samples=64)
 
@@ -171,6 +173,19 @@ with tempfile.TemporaryDirectory() as tmp:
                   eng.model.state_dict().values(),
                   rt_model.state_dict().values())),
               yaml_cfg.npe == rt_cfg.npe]
+# DINGO: dingo_nsf30's blocks at small widths, weights from a seed
+from posteriflow_torch.models.dingo import (dingo_config_from_dict,
+                                            seeded_state_dict)
+dcfg = dataclasses.replace(
+    dingo_config_from_dict(json.load(open(
+        "posteriflow_torch/models/configs/dingo_nsf30/meta.json"))["config"]),
+    f_max=27.875, n_rb=4, resnet_widths=(32, 32, 16, 16), context_dim=16,
+    flow_steps=3, flow_hidden=32, flow_blocks=2)
+deng = InferenceEngine(seeded_state_dict(dcfg, 1), dcfg, device="cpu")
+dstrain = np.random.default_rng(0).standard_normal(
+    (1, 3, 3, dcfg.n_freq)).astype(np.float32)
+dth, dlq, _ = deng.sample_posterior(deng.encode(dstrain, None), 0, 16,
+                                    generator=torch.Generator().manual_seed(0))
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                   "finite": bool(np.isfinite(res.samples).all()
@@ -198,7 +213,11 @@ print(json.dumps({"modules": mods, "shape": list(res.samples.shape),
                                bool(np.isfinite(v1_nll)), len(lb_hist),
                                chirp_L, rel_rc],
                   "mesh": [world, bool(torch.isfinite(dp["nll"]))],
-                  "export": export, "loaded": loaded}))
+                  "export": export,
+                  "dingo": [list(dth.shape),
+                            bool(torch.isfinite(dth).all()
+                                 and torch.isfinite(dlq).all())],
+                  "loaded": loaded}))
 """
 
 
@@ -217,6 +236,7 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     expected = {"posteriflow_torch." + p for p in (
         "ops.rqs", "ops.rqs_cuda", "models.flow", "models.encoder",
+        "models.dingo", "models.dingo_flow",
         "models.npe", "utils.msgpack_lite", "train.checkpoints",
         "inference.preprocessing", "inference.ood", "inference.gating",
         "inference.result", "inference.pipeline", "scaler",
@@ -266,6 +286,7 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
                                2560, 0]
     assert out["mesh"] == [1, True]
     assert out["export"] == [True, True, True]
+    assert out["dingo"] == [[1, 16, 15], True]
     assert out["loaded"] == []
 
 
