@@ -31,6 +31,14 @@ Phases (any failure exits non-zero and prints no result line):
       request's 3000 rows (phase x), both
       directions, with and without the bias, with tails beyond ±5: out
       and logdet max |Δ| = 0.
+  (b2) the conditioner's hidden-layer tail (csrc/conditioner.cu, which
+      replaces no Pallas kernel: XLA fused these elementwise ops on the
+      TPU; bound by memory, one 16-B vector of 8 columns a thread): every
+      bf16 input of the GELU, then passes A (bias, the event's context,
+      bf16 out) and B (bias, float32 out) at 131,072 x 256 and 100,000 x
+      128, bit-equal to the eager ops, timed beside their byte bound at
+      3.35 TB/s and the eager sequence; in (c) it launches twice a flow
+      layer.
   (c) serve 4 requests through `infer` (raw 32 s coloured Gaussian noise per
       detector from the design ASD, 5000 draws, ranks 0, 1, 0, 1); the
       launch counter must grow by one per flow layer per request. The
@@ -282,6 +290,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -583,6 +592,100 @@ def phase_kernel_check(torch, plain, rqs_cuda, card):
                 prev = errs.get(name, (0.0, 0.0))
                 errs[name] = (max(prev[0], e_out), max(prev[1], e_ld))
     return (*flagship, errs)
+
+
+# (b2) the conditioner tail at the served paths' hidden layers: rows, H,
+# events (a context row each, broadcast over its draws)
+COND_SHAPES = ((131072, 256, 8), (100000, 128, 250))
+
+
+def cond_bytes(rows: int, h: int, events: int, ctx: bool, out_f32: bool):
+    """Bytes a pass of the conditioner tail must move: the bf16 product,
+    the bias and the context rows read once, the output written once."""
+    return (2 * rows * h + 2 * h + (2 * events * h if ctx else 0)
+            + (4 if out_f32 else 2) * rows * h)
+
+
+def phase_conditioner(torch, card):
+    """(b2) the conditioner tail (ops/conditioner_cuda.py, csrc/
+    conditioner.cu): its build and registers; every bf16 input of the GELU
+    through the kernel against the eager ops (bit-equal); then at
+    131,072 x 256 (the flagship's request) and 100,000 x 128 (a long-BNS
+    request) pass A (bias, the event's context, bf16 out) and pass B
+    (bias, float32 out) bit-equal to the eager ops, each timed on the
+    device (torch.profiler; CUDA events back to back beside it, which a
+    short launch's host time can set) beside its byte bound at 3.35 TB/s
+    and the eager sequence."""
+    from posteriflow_torch.ops import conditioner_cuda as cc
+    t0 = time.perf_counter()
+    cc.KERNEL.load()
+    built = cc.KERNEL.build_seconds
+    print(f"(b2) conditioner library ready in {time.perf_counter() - t0:.2f}"
+          f" s ({'nvcc %.2f s' % built if built is not None else 'cached'})"
+          f" [{card}]")
+    for line in cc.KERNEL.build_log.splitlines():
+        if "registers" in line or "spill" in line or "cond_gelu" in line:
+            print(f"    ptxas: {line.strip()}")
+    spills = [int(m.group(1)) for m in re.finditer(
+        r"(\d+) bytes spill stores", cc.KERNEL.build_log)]
+    check(len(spills) == 4 and not any(spills),
+          f"the four conditioner kernel instances should not spill: "
+          f"{spills}")
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32)
+    every = bits.to(torch.int16).view(torch.bfloat16).reshape(-1, 256)
+    every = every.to(DEVICE)
+    zero = torch.zeros(256, dtype=torch.bfloat16, device=DEVICE)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = cc.KERNEL.launch(every, zero, out_dtype=out_dtype)
+        want = cc.bias_gelu_plain(every, zero, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        ok = ~want.isnan()
+        same = (torch.equal(got.isnan(), want.isnan())
+                and torch.equal(got[ok], want[ok]))
+        n_diff = int((got[ok] != want[ok]).sum())
+        print(f"(b2) every bf16 input of the GELU ({every.numel()}), "
+              f"{str(out_dtype)[6:]} out: bit-equal to the eager ops "
+              f"{same} ({n_diff} differ)")
+        check(same, f"the GELU differs from the eager ops on {n_diff} of "
+                    f"the bf16 inputs")
+    out = {}
+    g = torch.Generator(DEVICE).manual_seed(22)
+    for rows, h, events in COND_SHAPES:
+        p = (2.0 * torch.randn(events, rows // events, h, generator=g,
+                               device=DEVICE)).to(torch.bfloat16)
+        b = torch.randn(h, generator=g, device=DEVICE).to(torch.bfloat16)
+        q = torch.randn(events, 1, h, generator=g,
+                        device=DEVICE).to(torch.bfloat16)
+        for name, ctx, out_dtype in (("A", q, torch.bfloat16),
+                                     ("B", None, torch.float32)):
+            got = cc.KERNEL.launch(p, b, ctx, out_dtype)
+            want = cc.bias_gelu_plain(p, b, ctx, out_dtype)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"pass {name} at {rows} x {h} differs from the eager ops")
+
+            def launch():
+                return cc.KERNEL.launch(p, b, ctx, out_dtype)
+
+            ev_ms = cuda_time_ms(launch, 50)
+            dev_ms = kernel_device_ms(torch, launch, "cond_gelu")
+            k_ms = ev_ms if dev_ms is None else dev_ms
+            p_ms = cuda_time_ms(lambda: cc.bias_gelu_plain(p, b, ctx,
+                                                           out_dtype), 20)
+            nbytes = cond_bytes(rows, h, events, ctx is not None,
+                                out_dtype == torch.float32)
+            bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+            out[(rows, h, name)] = {"ms": k_ms, "events_ms": ev_ms,
+                                    "plain_ms": p_ms, "bound_ms": bound_ms,
+                                    "bytes": nbytes}
+            print(f"(b2) pass {name} at {rows} x {h} ({events} context "
+                  f"rows): bit-equal; kernel {1e3 * k_ms:.2f} us device "
+                  f"({'profiler' if dev_ms is not None else 'not measured'}"
+                  f"; {1e3 * ev_ms:.2f} us a launch by CUDA events back to "
+                  f"back), {nbytes / 1e6:.1f} MB, bound "
+                  f"{1e3 * bound_ms:.2f} us ({100 * bound_ms / k_ms:.1f}% "
+                  f"of it); eager ops {1e3 * p_ms:.2f} us [{card}]")
+    return out
 
 
 def phase_serve(torch, rqs_cuda, engine, card):
@@ -5631,10 +5734,17 @@ def main() -> int:
 
         x, raw, bias, errs = phase_kernel_check(torch, plain, rqs_cuda,
                                                 card)
+        cond = phase_conditioner(torch, card)
 
         state_dict, cfg, meta = load_release(RELEASE)
         engine = load_model(RELEASE, device=DEVICE)
+        from posteriflow_torch.ops import conditioner_cuda
+        cond_before = conditioner_cuda.KERNEL.launches
         launches = phase_serve(torch, rqs_cuda, engine, card)
+        cond_launches = conditioner_cuda.KERNEL.launches - cond_before
+        check(cond_launches == 2 * launches,
+              f"the conditioner kernel launched {cond_launches} times in "
+              f"(c), for {launches} spline launches (two a layer)")
         phase_reference(torch, InferenceEngine, state_dict, cfg, card)
         bench = phase_bench(torch, plain, rqs_cuda, engine, x, raw, bias,
                             card)
@@ -5939,6 +6049,19 @@ def main() -> int:
         f"rows_{Z_HEAD_BATCH}_d7_heads": zr["kernels"]["grad"],
         "library_ms": None,
     }]
+    kernels.append({
+        "name": "cond_gelu<ctx, out> (a flow conditioner's hidden-layer "
+                "tail: bias, context, bf16 tanh GELU)",
+        "route": "cuda",
+        "source": "posteriflow_torch/csrc/conditioner.cu",
+        "replaces": None,
+        "launches_by_path": {f"serve {N_REQUESTS} requests (c)":
+                             cond_launches},
+        "max_abs_err": 0.0,
+        **{f"rows_{r}_h{h}_pass_{name}": t
+           for (r, h, name), t in cond.items()},
+        "library_ms": None,
+    })
     print(f"(e) done in {time.perf_counter() - t_start:.1f} s [{card}]; "
           f"draws/s {bench['draws_per_s']:.0f} (noise batch, d), "
           f"{path['draws_per_s']:.0f} (simulated batch, h); simulate_batch "

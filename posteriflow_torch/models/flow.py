@@ -6,7 +6,10 @@ permutation -> split into identity and transform halves -> conditioner MLP
 the transform half. The spline goes through ops/rqs_cuda.py, which runs the
 CUDA kernel on CUDA tensors and the plain version on CPU tensors; the
 conditioner's derivative bias is handed to it rather than added to the raw
-parameters first, so that the kernel adds it as it reads them.
+parameters first, so that the kernel adds it as it reads them. Each hidden
+layer's bias, context add and GELU go through ops/conditioner_cuda.py, one
+kernel pass on the card where no gradient is needed, the eager ops
+otherwise, with the same bits.
 
 Module names follow the flax tree (`cond_{i}` with `in_x`, `in_ctx`,
 `mid_{i}`, `out`) so that released weights load one to one.
@@ -21,9 +24,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from posteriflow_torch.ops import rqs_cuda
+from posteriflow_torch.ops import conditioner_cuda, rqs_cuda
+from posteriflow_torch.ops.conditioner_cuda import gelu, in_dtype  # noqa: F401
 from posteriflow_torch.ops.rqs import DEFAULT_MIN_DERIVATIVE
-from posteriflow_torch.utils.logging import span
+from posteriflow_torch.utils.logging import count, span
 from posteriflow_torch.utils.precision import fp32_exact
 
 # derivative-channel init bias: min_derivative + softplus(b) = 1 exactly
@@ -49,22 +53,6 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
     product rounded to `dtype`, then the bias added in `dtype`."""
     return (F.linear(x.to(dtype), layer.weight.to(dtype))
             + layer.bias.to(dtype))
-
-
-def in_dtype(c: float, dtype: torch.dtype) -> float:
-    """The constant `c` rounded to `dtype`, as JAX casts a Python scalar to
-    the array's dtype before an operation."""
-    return float(torch.tensor(c, dtype=torch.float64).to(dtype))
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """flax nn.gelu, the tanh approximation, written out as jax.nn.gelu
-    computes it: op by op in x's dtype, with constants rounded to that
-    dtype. In bfloat16 this rounds where JAX rounds; F.gelu rounds once and
-    differs from JAX in the last bit of about 40% of bf16 outputs."""
-    c1 = in_dtype(math.sqrt(2.0 / math.pi), x.dtype)
-    c2 = in_dtype(0.044715, x.dtype)
-    return x * (0.5 * (1.0 + torch.tanh(c1 * (x + c2 * (x * x * x)))))
 
 
 class Conditioner(nn.Module):
@@ -100,13 +88,26 @@ class Conditioner(nn.Module):
     def project(self, x_id: torch.Tensor,
                 context: torch.Tensor) -> torch.Tensor:
         """The raw parameters before the derivative bias [..., n_transform,
-        3K-1]; the spline kernel adds `deriv_bias` as it reads them."""
+        3K-1]; the spline kernel adds `deriv_bias` as it reads them. Each
+        hidden layer is gelu(dense(...)) as `dense` and `gelu` round, its
+        tail (bias, context, GELU, and the last layer's cast to the output
+        projection's dtype) one `conditioner_cuda.bias_gelu` call; counts
+        conditioner_fused or conditioner_eager by the way it takes."""
         dt = self.compute_dtype
-        h = gelu(dense(self.in_x, x_id, dt) + dense(self.in_ctx, context, dt))
+        last = self.out.weight.dtype
+        p = F.linear(x_id.to(dt), self.in_x.weight.to(dt))
+        b = self.in_x.bias.to(dt)
+        q = dense(self.in_ctx, context, dt)
+        count("conditioner_fused" if conditioner_cuda.kernel_takes(p, b, q)
+              else "conditioner_eager")
+        h = conditioner_cuda.bias_gelu(p, b, q, last if not self.n_mid
+                                       else dt)
         for i in range(self.n_mid):
-            h = gelu(dense(getattr(self, f"mid_{i}"), h, dt))
-        out = F.linear(h.to(self.out.weight.dtype), self.out.weight,
-                       self.out.bias)
+            layer = getattr(self, f"mid_{i}")
+            h = conditioner_cuda.bias_gelu(
+                F.linear(h, layer.weight.to(dt)), layer.bias.to(dt),
+                out_dtype=last if i == self.n_mid - 1 else dt)
+        out = F.linear(h, self.out.weight, self.out.bias)
         return out.reshape(*out.shape[:-1], self.n_transform, -1)
 
     def forward(self, x_id: torch.Tensor,

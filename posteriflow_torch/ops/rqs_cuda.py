@@ -81,17 +81,43 @@ def find_nvcc(default_home: str = _DEFAULT_CUDA_HOME) -> str:
                        "put nvcc on PATH")
 
 
-def build_command(nvcc: str, output: Path) -> list:
-    """The nvcc command line that builds the kernel library."""
-    return [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(output),
-            str(SOURCE)]
+def build_command(nvcc: str, output: Path, source: Path = SOURCE,
+                  flags: tuple = NVCC_FLAGS) -> list:
+    """The nvcc command line that builds a kernel library (by default
+    this module's)."""
+    return [nvcc, *flags, "-Xptxas", "-v", "-o", str(output), str(source)]
 
 
-def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"librqs_{tag}.so"
+def library_path(source: Path = SOURCE, flags: tuple = NVCC_FLAGS,
+                 stem: str = "rqs") -> Path:
+    """Where the library for a source and its flags lives (by default
+    this module's)."""
+    tag = hashlib.sha256(source.read_bytes()
+                         + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{stem}_{tag}.so"
+
+
+def build_library(source: Path, flags: tuple, stem: str):
+    """Build `source` with nvcc into library_path(source, flags, stem)
+    unless that library is there. The compiler's output is kept beside
+    the library. -> (path, seconds the build took or None when cached,
+    the compiler's output)."""
+    so = library_path(source, flags, stem)
+    log = so.with_suffix(".log")
+    seconds = None
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(build_command(find_nvcc(), tmp, source, flags),
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:"
+                               f"\n{proc.stdout}\n{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+        seconds = time.perf_counter() - t0
+    return so, seconds, log.read_text() if log.exists() else ""
 
 
 def stage_bytes(rows: int, d: int, k: int) -> int:
@@ -203,21 +229,8 @@ class RqsKernel:
         holds it whether or not this process built it."""
         if self._fn is not None:
             return self._fn
-        so = library_path()
-        log = so.with_suffix(".log")
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(build_command(find_nvcc(), tmp),
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed with code {proc.returncode}:"
-                                   f"\n{proc.stdout}\n{proc.stderr}")
-            log.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
-            self.build_seconds = time.perf_counter() - t0
-        self.build_log = log.read_text() if log.exists() else ""
+        so, self.build_seconds, self.build_log = build_library(
+            SOURCE, NVCC_FLAGS, "rqs")
         self._lib = ctypes.CDLL(str(so))
         fn = self._lib.pf_rqs_launch
         fn.argtypes = [ctypes.c_void_p] * 5 + [

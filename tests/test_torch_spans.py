@@ -242,8 +242,12 @@ def test_served_path_spans_and_outputs(engine):
             "pf.rqs": (2 * layers, 2, {"pf.flow.sample": 2 * layers})}
     want.update({n: (2, 2, {"pf.encoder": 2}) for n in ENCODER_PARTS})
     assert _spans_of(snap, snap) == want
-    # the host arrays stay on the CPU here: nothing is copied to a card
-    assert all(v["counts"] == {} for v in snap.values())
+    # the host arrays stay on the CPU here: nothing is copied to a card;
+    # each conditioner call counts its way, the eager ops off the card
+    assert snap["pf.flow.conditioner"]["counts"] == {
+        "conditioner_eager": 2 * layers}
+    assert all(v["counts"] == {} for k, v in snap.items()
+               if k != "pf.flow.conditioner")
 
 
 def test_simulator_spans_with_a_bank():
