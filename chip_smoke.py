@@ -1635,7 +1635,7 @@ def build_bank_server(out: dict):
     fills `out` with the library's name, the seconds and success."""
     from posteriflow_torch.data import native_bank
     t0 = time.perf_counter()
-    out["library"] = native_bank.library_path().name
+    out["library"] = native_bank.LIBRARY.path.name
     out["ok"] = native_bank.build_native()
     out["seconds"] = time.perf_counter() - t0
 
@@ -1917,7 +1917,7 @@ def phase_importance(torch, plain, rqs_cuda, engine, engine_cls, state_dict,
     from posteriflow_torch.inference import importance as imp
     from posteriflow_torch.inference.pipeline import infer
     from posteriflow_torch.inference.preprocessing import prepare_simulated
-    from posteriflow_torch.models.flow import DTYPES
+    from posteriflow_torch.utils.precision import DTYPES
     from posteriflow_torch.prior import PriorConfig
     from posteriflow_torch.tools import infer as infer_cli
     t_phase = time.perf_counter()
@@ -2407,13 +2407,13 @@ def phase_batched_decompose(torch, plain, rqs_cuda, engine, train_cfg,
                          generator=gen)
     run()                                                     # warm
     rows = []
-    launch = rqs_cuda.KERNEL.launch
+    launch = rqs_cuda.KERNEL._launch
 
     def recording(x, *a, **k):
         rows.append(int(x.shape[0]))
         return launch(x, *a, **k)
     counts, restore = _count_plain(torch, plain)
-    rqs_cuda.KERNEL.launch = recording
+    rqs_cuda.KERNEL._launch = recording
     try:
         rqs_cuda.KERNEL.launches = 0
         torch.cuda.synchronize()
@@ -2423,7 +2423,7 @@ def phase_batched_decompose(torch, plain, rqs_cuda, engine, train_cfg,
         launches = rqs_cuda.KERNEL.launches
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
-        rqs_cuda.KERNEL.launch = launch
+        rqs_cuda.KERNEL._launch = launch
         restore()
     call_ms = cuda_time_ms(run, reps=3, warmup=0)
     expected = POD_STAGES * layers
@@ -4356,18 +4356,18 @@ def y_decompose(torch, plain, rqs_cuda, model, train_cfg, sim_cfg, mesh,
         train_cfg, n_samples=POD_SAMPLES, max_stages=POD_STAGES,
         n_template_draws=POD_TEMPLATES, mesh=mesh)
     rows = []
-    launch = rqs_cuda.KERNEL.launch
+    launch = rqs_cuda.KERNEL._launch
 
     def recording(x, *a, **k):
         rows.append(int(x.shape[0]))
         return launch(x, *a, **k)
     counts, restore = _count_plain(torch, plain)
-    rqs_cuda.KERNEL.launch = recording
+    rqs_cuda.KERNEL._launch = recording
     try:
         out = decompose(model, ev.strain, ev.asd_bands, generator=gen)
         torch.cuda.synchronize()
     finally:
-        rqs_cuda.KERNEL.launch = launch
+        rqs_cuda.KERNEL._launch = launch
         restore()
     return {"out": {k: v.cpu() for k, v in out.items()}, "rows": rows,
             "plain": dict(counts)}
@@ -4987,7 +4987,7 @@ def _z_path(torch, plain, rqs_cuda, label, fn):
     -> (fn's result, (rqs_tile, rqs_grad) launches, {shape: count})."""
     from collections import Counter
     shapes = Counter()
-    launch, grad = rqs_cuda.KERNEL.launch, rqs_cuda.GRAD_KERNEL._launch
+    launch, grad = rqs_cuda.KERNEL._launch, rqs_cuda.GRAD_KERNEL._launch
 
     def rec_launch(x, raw, num_bins, tail, inverse, bias=None):
         shapes[(x.shape[0], x.shape[1], num_bins, bool(inverse))] += 1
@@ -4997,7 +4997,7 @@ def _z_path(torch, plain, rqs_cuda, label, fn):
         shapes[(x.shape[0], x.shape[1], num_bins, "grad")] += 1
         return grad(x, raw, g_out, g_ld, num_bins, tail, bias)
     counts, restore = _count_plain(torch, plain)
-    rqs_cuda.KERNEL.launch, rqs_cuda.GRAD_KERNEL._launch = rec_launch, \
+    rqs_cuda.KERNEL._launch, rqs_cuda.GRAD_KERNEL._launch = rec_launch, \
         rec_grad
     rqs_cuda.KERNEL.launches = rqs_cuda.GRAD_KERNEL.launches = 0
     try:
@@ -5005,7 +5005,7 @@ def _z_path(torch, plain, rqs_cuda, label, fn):
         torch.cuda.synchronize()
     finally:
         restore()
-        rqs_cuda.KERNEL.launch, rqs_cuda.GRAD_KERNEL._launch = launch, grad
+        rqs_cuda.KERNEL._launch, rqs_cuda.GRAD_KERNEL._launch = launch, grad
     n = (rqs_cuda.KERNEL.launches, rqs_cuda.GRAD_KERNEL.launches)
     print(f"(z) {label}: rqs_tile launches {n[0]}, rqs_grad {n[1]}; by "
           f"(rows, D, K, direction) {dict(shapes)}; plain spline calls "
@@ -5723,7 +5723,7 @@ def main() -> int:
         rqs_cuda.KERNEL.load()
         built = rqs_cuda.KERNEL.build_seconds
         bank_thread.join()
-        print(f"(a) kernel library {rqs_cuda.library_path().name} ready in "
+        print(f"(a) kernel library {rqs_cuda.KERNEL.path.name} ready in "
               f"{time.perf_counter() - t0:.2f} s ("
               f"{'nvcc %.2f s' % built if built is not None else 'cached'})"
               f" [{card}]; crop server {bank_build['library']} built by g++ "

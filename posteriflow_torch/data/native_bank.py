@@ -4,93 +4,62 @@ The native path is for banks too large to live in device memory: segments
 stay memory-mapped on the host, and each training step asks for
 [n, 3, T] float32 crops (multithreaded f16 → f32 with the flip/sign
 decorrelation) in a host buffer that data/host_feed.py then copies to the
-card. The library is built at first use with
+card. The library is built at first use by utils/native.py with
 
-    g++ -O3 -std=c++17 -fPIC -Wall -Wextra -pthread -shared
+    $CXX (g++ when unset) -O3 -std=c++17 -fPIC -Wall -Wextra -pthread -shared
 
-into the git-ignored ``posteriflow_torch/_build/``, named by a hash of the
-source and flags, and has the JAX package's C ABI (runtime/bankd.cpp), so
-both servers give the same crops from one seed. Without a compiler, or if
-the build fails (the compiler's output is logged), the server reads the
-same files with numpy: the same distribution, another random stream;
+and has the JAX package's C ABI (runtime/bankd.cpp), so both servers give
+the same crops from one seed. Without a compiler, or if the build fails
+(the compiler's output is logged), the server reads the same files with
+numpy: the same distribution, another random stream;
 `NativeBankServer.native` says which path serves.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import logging
 import os
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
 from posteriflow_torch.physics.constants import DETECTORS, N_SAMPLES
+from posteriflow_torch.utils import native
 
 log = logging.getLogger("posteriflow.data")
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "bankd.cpp"
-BUILD_DIR = _PKG / "_build"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "bankd.cpp"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread",
              "-shared")
+LIBRARY = native.Library(SOURCE, CXX_FLAGS, "pfbank",
+                         lambda: os.environ.get("CXX", "g++"), extra=())
 
 
-def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libpfbank_{tag}.so"
-
-
-def build_native(quiet: bool = True) -> bool:
+def build_native() -> bool:
     """Compile the shared library into _build/ unless it is there; returns
-    success. A failed build logs the compiler's output; quiet=False also
-    prints a successful build's."""
-    so = library_path()
-    if so.exists():
-        return True
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
-           str(SOURCE)]
+    success. A failed build logs the compiler's output."""
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        log.warning("bank server build: %s could not run (%s); serving "
-                    "crops with numpy", cmd[0], e)
+        LIBRARY.build()
+    except RuntimeError as e:
+        log.warning("bank server build failed: %s; serving crops with "
+                    "numpy", e)
         return False
-    if proc.returncode != 0:
-        log.warning("bank server build failed (code %d): %s\n%s%s; serving "
-                    "crops with numpy", proc.returncode, " ".join(cmd),
-                    proc.stdout, proc.stderr)
-        tmp.unlink(missing_ok=True)
-        return False
-    if not quiet:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, so)
     return True
 
 
 def _load_lib() -> Optional[ctypes.CDLL]:
     if not build_native():
         return None
-    lib = ctypes.CDLL(str(library_path()))
-    lib.pf_bank_open.restype = ctypes.c_void_p
-    lib.pf_bank_open.argtypes = [ctypes.c_char_p]
-    lib.pf_bank_n_segments.restype = ctypes.c_int
-    lib.pf_bank_n_segments.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.pf_bank_sample.restype = ctypes.c_int
-    lib.pf_bank_sample.argtypes = [
+    LIBRARY.bind("pf_bank_open", [ctypes.c_char_p], ctypes.c_void_p)
+    LIBRARY.bind("pf_bank_n_segments", [ctypes.c_void_p, ctypes.c_int])
+    LIBRARY.bind("pf_bank_sample", [
         ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32),
-        ctypes.c_int]
-    lib.pf_bank_close.restype = None
-    lib.pf_bank_close.argtypes = [ctypes.c_void_p]
-    return lib
+        ctypes.c_int])
+    LIBRARY.bind("pf_bank_close", [ctypes.c_void_p], None)
+    return LIBRARY.load()
 
 
 class NativeBankServer:

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from posteriflow_torch.models.flow import gelu
+from posteriflow_torch.utils.precision import gelu
 
 MC_RANGE = (10.0, 40.0)
 Q_RANGE = (0.4, 1.0)

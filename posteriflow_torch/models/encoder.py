@@ -28,12 +28,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from posteriflow_torch.models.flow import DTYPES, dense, gelu, in_dtype
 from posteriflow_torch.physics.constants import (F_LOWER, F_UPPER, N_SAMPLES,
                                                  SAMPLE_RATE)
 from posteriflow_torch.utils.constants import device_constant
 from posteriflow_torch.utils.logging import span
-from posteriflow_torch.utils.precision import fp32_exact
+from posteriflow_torch.utils.precision import (DTYPES, dense, fp32_exact, gelu,
+                                                in_dtype)
 
 STEM_SCHEDULE = ((32, 64, 8), (64, 16, 4), (128, 8, 4))   # (out, k, stride)
 STEM_LAST = (4, 2)                                         # d_model out

@@ -25,18 +25,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from posteriflow_torch.ops import conditioner_cuda, rqs_cuda
-from posteriflow_torch.ops.conditioner_cuda import gelu, in_dtype  # noqa: F401
 from posteriflow_torch.ops.rqs import DEFAULT_MIN_DERIVATIVE
 from posteriflow_torch.utils.logging import count, span
-from posteriflow_torch.utils.precision import fp32_exact
+from posteriflow_torch.utils.precision import DTYPES, dense, fp32_exact
 
 # derivative-channel init bias: min_derivative + softplus(b) = 1 exactly
 _DERIV_BIAS = float(np.log(np.expm1(1.0 - DEFAULT_MIN_DERIVATIVE)))
-
-# float64 is a reference precision for checks (a model moved there with
-# .double() runs on the CPU, where the spline is the plain version)
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float64": torch.float64}
 
 
 def make_permutations(features: int, num_layers: int,
@@ -46,13 +40,6 @@ def make_permutations(features: int, num_layers: int,
     rng = np.random.default_rng(seed)
     return np.stack([rng.permutation(features)
                      for _ in range(num_layers)]).astype(np.int64)
-
-
-def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
-    """flax Dense(dtype=...): input, kernel and bias cast to `dtype`, the
-    product rounded to `dtype`, then the bias added in `dtype`."""
-    return (F.linear(x.to(dtype), layer.weight.to(dtype))
-            + layer.bias.to(dtype))
 
 
 class Conditioner(nn.Module):

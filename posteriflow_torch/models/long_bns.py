@@ -48,7 +48,7 @@ import torch.distributed as dist
 from torch import nn
 
 from posteriflow_torch.models.encoder import sinusoidal_positions
-from posteriflow_torch.models.flow import CouplingNSF, gelu
+from posteriflow_torch.models.flow import CouplingNSF
 from posteriflow_torch.parallel.mesh import (all_gather_seq, all_reduce_sum,
                                              shard_rows)
 from posteriflow_torch.physics.constants import (MTSUN_SI, N_DETECTORS,
@@ -64,7 +64,7 @@ from posteriflow_torch.prior import PriorConfig, sample_signal_params
 from posteriflow_torch.scaler import ParamScaler
 from posteriflow_torch.utils.constants import device_constant
 from posteriflow_torch.utils.logging import span
-from posteriflow_torch.utils.precision import fp32_exact
+from posteriflow_torch.utils.precision import fp32_exact, gelu
 from posteriflow_torch.utils.provenance import config_hash
 
 EQM = 2.0 * 0.25 ** 0.6                 # Mc / m of an equal-mass binary

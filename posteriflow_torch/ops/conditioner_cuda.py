@@ -10,29 +10,25 @@ grad), the plain version (`bias_gelu_plain`, the op sequence) otherwise:
 CPU tensors, other dtypes, and autograd, for which the kernel has no
 backward. On a CUDA tensor it takes, the kernel launches or raises; there
 is no fallback. The two give the same bits, so a caller sees which ran
-only through `KERNEL.launches`.
-
-The library is built at first use as ops/rqs_cuda.py builds its own
-(nvcc, a plain C interface, ctypes; cached by a hash of source and flags
-in ``posteriflow_torch/_build/``), with NVCC_FLAGS below: no -fmad=false,
-since the kernel's own products and sums are __fmul_rn / __fadd_rn, which
-are never contracted, and tanhf is then compiled as PyTorch's bf16 tanh
-compiles it.
+only through `KERNEL.launches`. The library is built at first use by
+utils/native.py.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from posteriflow_torch.ops.rqs_cuda import build_library
+from posteriflow_torch.utils import native
+from posteriflow_torch.utils.precision import gelu, gelu_constants
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "conditioner.cu"
+# no -fmad=false: the kernel's own products and sums are __fmul_rn /
+# __fadd_rn, never contracted, and tanhf compiles as PyTorch's bf16 tanh
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
               "-Xcompiler", "-fPIC")
 # csrc/conditioner.cu: kThreads; a thread takes 8 columns, so H is a
@@ -42,29 +38,6 @@ MAX_HIDDEN = 8 * THREADS
 # persistent blocks an SM: on an H100 at 131,072 x 256 the fastest of 4, 8
 # and 16 for both passes (by 3-15 %)
 BLOCKS_PER_SM = 4
-
-
-def in_dtype(c: float, dtype: torch.dtype) -> float:
-    """The constant `c` rounded to `dtype`, as JAX casts a Python scalar to
-    the array's dtype before an operation."""
-    return float(torch.tensor(c, dtype=torch.float64).to(dtype))
-
-
-@functools.lru_cache(maxsize=None)
-def gelu_constants(dtype: torch.dtype):
-    """(c1, c2) of the tanh GELU, rounded to `dtype` (kept per dtype: the
-    rounding costs ~10 µs of host time a call)."""
-    return (in_dtype(math.sqrt(2.0 / math.pi), dtype),
-            in_dtype(0.044715, dtype))
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """flax nn.gelu, the tanh approximation, written out as jax.nn.gelu
-    computes it: op by op in x's dtype, with constants rounded to that
-    dtype. In bfloat16 this rounds where JAX rounds; F.gelu rounds once and
-    differs from JAX in the last bit of about 40% of bf16 outputs."""
-    c1, c2 = gelu_constants(x.dtype)
-    return x * (0.5 * (1.0 + torch.tanh(c1 * (x + c2 * (x * x * x)))))
 
 
 def bias_gelu_plain(p: torch.Tensor, bias: torch.Tensor,
@@ -104,43 +77,16 @@ def context_rep(p_shape, c_shape) -> int:
     return math.prod(p_shape[k:-1])
 
 
-class ConditionerKernel:
-    """The loaded library and its launch count.
+class ConditionerKernel(native.Library):
+    """The library of csrc/conditioner.cu, its launcher and launch count.
 
     `launches` goes up by one for each launch of the kernel and nowhere
     else; callers read and reset it to show that a path ran the kernel."""
 
     def __init__(self):
+        super().__init__(SOURCE, NVCC_FLAGS, "conditioner")
         self._fn = None
-        self._sm_count = {}
         self.launches = 0
-        self.build_seconds: Optional[float] = None   # None: library cached
-        self.build_log = ""
-
-    def load(self):
-        """Build (if the cached library is missing) and bind the launcher."""
-        if self._fn is not None:
-            return self._fn
-        so, self.build_seconds, self.build_log = build_library(
-            SOURCE, NVCC_FLAGS, "conditioner")
-        fn = ctypes.CDLL(str(so)).pf_cond_gelu_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        self._fn = fn
-        return fn
-
-    def grid(self, rows: int, h: int, device: torch.device) -> int:
-        """Persistent blocks for `rows` rows of width h on `device`."""
-        idx = device.index if device.index is not None else 0
-        if idx not in self._sm_count:
-            self._sm_count[idx] = torch.cuda.get_device_properties(
-                idx).multi_processor_count
-        rows_per_block = THREADS // (h // 8)
-        return max(1, min(-(-rows // rows_per_block),
-                          BLOCKS_PER_SM * self._sm_count[idx]))
 
     def launch(self, p: torch.Tensor, bias: torch.Tensor,
                context: Optional[torch.Tensor] = None,
@@ -185,14 +131,21 @@ class ConditionerKernel:
         out = torch.empty(p.shape, dtype=out_dtype, device=p.device)
         if rows == 0:
             return out
+        if self._fn is None:
+            self._fn = self.bind(
+                "pf_cond_gelu_launch", [ctypes.c_void_p] * 4 + [
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p])
         c1, c2 = gelu_constants(torch.bfloat16)
-        dev = p.device
-        err = self.load()(
+        device = p.device.index or 0
+        grid = max(1, min(-(-rows // (THREADS // (h // 8))),   # persistent
+                          BLOCKS_PER_SM * native.sm_count(device)))
+        err = self._fn(
             p.data_ptr(), bias.data_ptr(),
             None if context is None else context.data_ptr(), out.data_ptr(),
-            rows, h, rep, int(out_dtype == torch.float32), c1, c2,
-            self.grid(rows, h, dev), dev.index or 0,
-            torch.cuda.current_stream(dev).cuda_stream)
+            rows, h, rep, int(out_dtype == torch.float32), c1, c2, grid,
+            device, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"conditioner kernel launch failed with CUDA "
                                f"error {err}")

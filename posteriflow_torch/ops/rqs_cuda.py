@@ -1,4 +1,4 @@
-"""The RQS kernels of csrc/rqs.cu: build with nvcc, bind with ctypes, launch.
+"""The RQS kernels of csrc/rqs.cu, built at first use by utils/native.py.
 
 `rqs_forward` / `rqs_inverse` take the signature of ops/rqs.py plus an
 optional `bias` [3K-1] added to the raw parameters, and choose by the
@@ -14,25 +14,12 @@ and inverse kernel replaces the TPU kernel
 posteriflow_tpu/ops/pallas_rqs.py:_pallas_rqs; csrc/rqs.cu says what bounds
 each kernel and how it is laid out, and `tile_plan` below sizes the
 forward's ring of row tiles.
-
-The shared library is compiled at first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
--fmad=false``
-into ``posteriflow_torch/_build/`` (git-ignored), named by a hash of the
-source and flags, and loaded with ctypes. It has a plain C interface and
-includes no PyTorch header, so the build takes seconds and needs neither
-ninja nor pybind.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import re
-import shutil
-import subprocess
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
@@ -40,11 +27,10 @@ from typing import Optional
 import torch
 
 from posteriflow_torch.ops import rqs as plain
+from posteriflow_torch.utils import native
 from posteriflow_torch.utils.logging import span
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "rqs.cu"
-BUILD_DIR = _PKG / "_build"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rqs.cu"
 # -fmad=false: no fused multiply-add, so that each product and sum rounds as
 # it does in the plain version (see csrc/rqs.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
@@ -60,64 +46,6 @@ BLOCKS_PER_SM = 2
 SMEM_PER_SM = 233472
 SMEM_RESERVED = 1024
 SMEM_PER_BLOCK = 232448
-# the toolkit's standard install prefix, tried after CUDA_HOME and PATH
-_DEFAULT_CUDA_HOME = "/usr/local/cuda"
-
-
-def find_nvcc(default_home: str = _DEFAULT_CUDA_HOME) -> str:
-    """Path of nvcc from $CUDA_HOME, then $PATH, then the toolkit's
-    standard prefix. Raises RuntimeError if none has it."""
-    candidates = []
-    if os.environ.get("CUDA_HOME"):
-        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
-    on_path = shutil.which("nvcc")
-    if on_path:
-        candidates.append(Path(on_path))
-    candidates.append(Path(default_home) / "bin" / "nvcc")
-    for c in candidates:
-        if c.is_file() and os.access(c, os.X_OK):
-            return str(c)
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit or "
-                       "put nvcc on PATH")
-
-
-def build_command(nvcc: str, output: Path, source: Path = SOURCE,
-                  flags: tuple = NVCC_FLAGS) -> list:
-    """The nvcc command line that builds a kernel library (by default
-    this module's)."""
-    return [nvcc, *flags, "-Xptxas", "-v", "-o", str(output), str(source)]
-
-
-def library_path(source: Path = SOURCE, flags: tuple = NVCC_FLAGS,
-                 stem: str = "rqs") -> Path:
-    """Where the library for a source and its flags lives (by default
-    this module's)."""
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(flags).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{stem}_{tag}.so"
-
-
-def build_library(source: Path, flags: tuple, stem: str):
-    """Build `source` with nvcc into library_path(source, flags, stem)
-    unless that library is there. The compiler's output is kept beside
-    the library. -> (path, seconds the build took or None when cached,
-    the compiler's output)."""
-    so = library_path(source, flags, stem)
-    log = so.with_suffix(".log")
-    seconds = None
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(build_command(find_nvcc(), tmp, source, flags),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:"
-                               f"\n{proc.stdout}\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-        seconds = time.perf_counter() - t0
-    return so, seconds, log.read_text() if log.exists() else ""
 
 
 def stage_bytes(rows: int, d: int, k: int) -> int:
@@ -209,50 +137,16 @@ def ptxas_instances(log: str, kernel: str = "rqs_tile") -> list:
     return found
 
 
-class RqsKernel:
-    """The loaded library and its launch count.
+class RqsKernel(native.Library):
+    """The library of csrc/rqs.cu, its forward launcher and launch count.
 
     `launches` goes up by one for each launch of the kernel and nowhere
     else; callers read and reset it to show that a path ran the kernel."""
 
     def __init__(self):
+        super().__init__(SOURCE, NVCC_FLAGS, "rqs")
         self._fn = None
-        self._lib = None
-        self._sm_count = {}
         self.launches = 0
-        self.build_seconds: Optional[float] = None   # None: library cached
-        self.build_log = ""
-
-    def load(self):
-        """Build (if the cached library is missing) and bind the launcher.
-        The compiler's output is kept beside the library, so `build_log`
-        holds it whether or not this process built it."""
-        if self._fn is not None:
-            return self._fn
-        so, self.build_seconds, self.build_log = build_library(
-            SOURCE, NVCC_FLAGS, "rqs")
-        self._lib = ctypes.CDLL(str(so))
-        fn = self._lib.pf_rqs_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        self._fn = fn
-        return fn
-
-    def library(self) -> ctypes.CDLL:
-        """The loaded library (built at first use)."""
-        self.load()
-        return self._lib
-
-    def plan(self, n: int, d: int, k: int, device: torch.device) -> TilePlan:
-        """tile_plan for the card `device` (its SM count read once)."""
-        idx = device.index if device.index is not None else 0
-        if idx not in self._sm_count:
-            self._sm_count[idx] = torch.cuda.get_device_properties(
-                idx).multi_processor_count
-        return tile_plan(n, d, k, self._sm_count[idx])
 
     def launch(self, x: torch.Tensor, raw: torch.Tensor, num_bins: int,
                tail_bound: float, inverse: bool,
@@ -260,22 +154,31 @@ class RqsKernel:
         """x [N, D] and raw [N, D·(3K-1)] 16-B aligned, bias [3K-1] or None:
         contiguous float32 on one CUDA device -> (out [N, D], logdet [N])
         of the spline on raw + bias, on PyTorch's current stream."""
-        n, d = _check_spline_args(x, raw, num_bins, bias)
-        if raw.data_ptr() % 16 != 0 or x.data_ptr() % 16 != 0:
-            raise ValueError("rqs kernel needs x and raw at 16-byte aligned "
-                             "addresses (its tiles are bulk copies)")
+        _check_spline_args(x, raw, num_bins, bias)
+        _check_aligned(raw, x)
+        return self._launch(x, raw, num_bins, tail_bound, inverse, bias)
+
+    def _launch(self, x, raw, num_bins, tail_bound, inverse, bias):
+        """`launch` without its checks, for a caller that has made them
+        (_rqs, directly or through RqsForwardFn.forward)."""
+        n, d = x.shape
         out = torch.empty_like(x)
         logdet = torch.empty(n, dtype=torch.float32, device=x.device)
         if n == 0:
             return out, logdet
-        fn = self.load()
-        plan = self.plan(n, d, num_bins, x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), raw.data_ptr(),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 logdet.data_ptr(), n, d, num_bins, float(tail_bound),
-                 int(bool(inverse)), plan.rows_per_tile, plan.grid,
-                 plan.smem_bytes, x.device.index or 0, stream)
+        if self._fn is None:
+            self._fn = self.bind("pf_rqs_launch", [ctypes.c_void_p] * 5 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p])
+        device = x.device.index or 0
+        plan = tile_plan(n, d, num_bins, native.sm_count(device))
+        err = self._fn(x.data_ptr(), raw.data_ptr(),
+                       None if bias is None else bias.data_ptr(),
+                       out.data_ptr(), logdet.data_ptr(), n, d, num_bins,
+                       float(tail_bound), int(bool(inverse)),
+                       plan.rows_per_tile, plan.grid, plan.smem_bytes, device,
+                       torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"rqs kernel launch failed with CUDA error "
                                f"{err}")
@@ -286,11 +189,8 @@ class RqsKernel:
 KERNEL = RqsKernel()
 
 
-def _check_spline_args(x: torch.Tensor, raw: torch.Tensor, num_bins: int,
-                       bias: Optional[torch.Tensor]):
-    """The checks both launchers share: x [N, D] and raw [N, D·(3K-1)]
-    contiguous float32 on one CUDA device, K built, bias a contiguous
-    float32 [3K-1] there or None. Returns (N, D)."""
+def _check_operands(x: torch.Tensor, raw: torch.Tensor, num_bins: int):
+    """x and raw float32 on one CUDA device, K one of the built."""
     if x.device.type != "cuda" or raw.device != x.device:
         raise ValueError(f"rqs kernel needs x and raw on one CUDA device, "
                          f"got {x.device} and {raw.device}")
@@ -300,6 +200,29 @@ def _check_spline_args(x: torch.Tensor, raw: torch.Tensor, num_bins: int,
     if num_bins not in SUPPORTED_BINS:
         raise ValueError(f"rqs kernel is built for K in {SUPPORTED_BINS}, "
                          f"got {num_bins}")
+
+
+def _check_bias_and_rows(x: torch.Tensor, n: int, num_bins: int,
+                         bias: Optional[torch.Tensor]):
+    """bias a contiguous float32 [3K-1] on x's device or None; N < 2³¹."""
+    if bias is not None:
+        n_raw = 3 * num_bins - 1
+        if bias.device != x.device or bias.dtype != torch.float32:
+            raise ValueError(f"bias must be float32 on {x.device}, got "
+                             f"{bias.dtype} on {bias.device}")
+        if tuple(bias.shape) != (n_raw,) or not bias.is_contiguous():
+            raise ValueError(f"bias must be a contiguous [{n_raw}], got "
+                             f"{tuple(bias.shape)}")
+    if n >= 2 ** 31 - THREADS:
+        raise ValueError(f"too many rows for the kernel: {n}")
+
+
+def _check_spline_args(x: torch.Tensor, raw: torch.Tensor, num_bins: int,
+                       bias: Optional[torch.Tensor]):
+    """The checks both launchers share: x [N, D] and raw [N, D·(3K-1)]
+    contiguous float32 on one CUDA device, K built, bias a contiguous
+    float32 [3K-1] there or None."""
+    _check_operands(x, raw, num_bins)
     if x.dim() != 2:
         raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
     n, d = x.shape
@@ -309,36 +232,24 @@ def _check_spline_args(x: torch.Tensor, raw: torch.Tensor, num_bins: int,
                          f"got {tuple(raw.shape)}")
     if not (x.is_contiguous() and raw.is_contiguous()):
         raise ValueError("rqs kernel needs contiguous x and raw")
-    if bias is not None:
-        if bias.device != x.device or bias.dtype != torch.float32:
-            raise ValueError(f"bias must be float32 on {x.device}, got "
-                             f"{bias.dtype} on {bias.device}")
-        if tuple(bias.shape) != (n_raw,) or not bias.is_contiguous():
-            raise ValueError(f"bias must be a contiguous [{n_raw}], got "
-                             f"{tuple(bias.shape)}")
-    if n >= 2 ** 31 - THREADS:
-        raise ValueError(f"too many rows for the kernel: {n}")
-    return n, d
+    _check_bias_and_rows(x, n, num_bins, bias)
+
+
+def _check_aligned(*tensors: torch.Tensor):
+    """The forward kernel's tiles are bulk copies of x and raw."""
+    if any(t.data_ptr() % 16 != 0 for t in tensors):
+        raise ValueError("rqs kernel needs x and raw at 16-byte aligned "
+                         "addresses (its tiles are bulk copies)")
 
 
 class RqsGradKernel:
     """The backward kernel rqs_grad<K, BIAS> of the same library, and its
     launch count (`launches`: one for each launch, nowhere else)."""
 
-    def __init__(self, forward: RqsKernel):
-        self._forward = forward
+    def __init__(self, library: native.Library):
+        self._library = library
         self._fn = None
         self.launches = 0
-
-    def _bind(self):
-        if self._fn is None:
-            fn = self._forward.library().pf_rqs_grad_launch
-            fn.argtypes = [ctypes.c_void_p] * 7 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
 
     def launch(self, x: torch.Tensor, raw: torch.Tensor,
                g_out: torch.Tensor, g_logdet: torch.Tensor, num_bins: int,
@@ -359,8 +270,13 @@ class RqsGradKernel:
         g_raw = torch.empty_like(raw)
         if x.shape[0] == 0:
             return g_x, g_raw
+        if self._fn is None:
+            self._fn = self._library.bind(
+                "pf_rqs_grad_launch", [ctypes.c_void_p] * 7 + [
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_int, ctypes.c_void_p])
         device = x.get_device()
-        err = self._bind()(
+        err = self._fn(
             x.data_ptr(), raw.data_ptr(),
             None if bias is None else bias.data_ptr(), g_out.data_ptr(),
             g_logdet.data_ptr(), g_x.data_ptr(), g_raw.data_ptr(),
@@ -392,15 +308,16 @@ GRAD_KERNEL = RqsGradKernel(KERNEL)
 
 class RqsForwardFn(torch.autograd.Function):
     """The forward spline kernel with the backward kernel as its gradient:
-    x [N, D], raw [N, D·(3K-1)] (both 16-B aligned) and a constant bias ->
-    (out [N, D], logdet [N]). Saves x and the bias-less raw. The backward
-    kernel's outputs carry no graph, so its backward raises under
-    create_graph rather than let a second derivative lose its terms."""
+    x [N, D], raw [N, D·(3K-1)] and a constant bias, as KERNEL.launch takes
+    them and checked by the caller (_rqs) -> (out [N, D], logdet [N]).
+    Saves x and the bias-less raw. The backward kernel's outputs carry no
+    graph, so its backward raises under create_graph rather than let a
+    second derivative lose its terms."""
 
     @staticmethod
     def forward(ctx, x, raw, num_bins, tail_bound, bias):
-        out, logdet = KERNEL.launch(x, raw, num_bins, tail_bound, False,
-                                    bias)
+        out, logdet = KERNEL._launch(x, raw, num_bins, tail_bound, False,
+                                     bias)
         ctx.save_for_backward(x, raw, bias)
         ctx.spline = (num_bins, tail_bound)
         return out, logdet
@@ -456,16 +373,20 @@ def _rqs(x: torch.Tensor, raw_params: torch.Tensor, num_bins: int,
         if tuple(raw_params.shape) != (*batch, d, n_raw):
             raise ValueError(f"raw_params must be {(*batch, d, n_raw)}, got "
                              f"{tuple(raw_params.shape)}")
+        _check_operands(x, raw_params, num_bins)
+        _check_bias_and_rows(x, batch.numel(), num_bins, bias)
+        # x2 and raw2 are built contiguous, x2 aligned: raw2 is checked
         x2 = x.reshape(-1, d).contiguous()
         if x2.data_ptr() % 16 != 0:      # a view into x: copy its N·D floats
             x2 = x2.clone()
         raw2 = raw_params.reshape(x2.shape[0], d * n_raw).contiguous()
+        _check_aligned(raw2)
         if differentiate:
             out, logdet = RqsForwardFn.apply(x2, raw2, num_bins, tail_bound,
                                              bias)
         else:
-            out, logdet = KERNEL.launch(x2, raw2, num_bins, tail_bound,
-                                        inverse, bias)
+            out, logdet = KERNEL._launch(x2, raw2, num_bins, tail_bound,
+                                         inverse, bias)
         return out.reshape(*batch, d), logdet.reshape(batch)
 
 

@@ -27,8 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from posteriflow_torch.models.flow import CouplingNSF, gelu
-from posteriflow_torch.utils.precision import fp32_exact
+from posteriflow_torch.models.flow import CouplingNSF
+from posteriflow_torch.utils.precision import fp32_exact, gelu
 
 HEADS = ("nsf_small", "nsf_large", "mdn")
 

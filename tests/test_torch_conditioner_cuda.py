@@ -22,9 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from posteriflow_torch.models.flow import Conditioner, CouplingNSF, dense
+from posteriflow_torch.models.flow import Conditioner, CouplingNSF
 from posteriflow_torch.ops import conditioner_cuda as cc
 from posteriflow_torch.utils import logging as plog
+from posteriflow_torch.utils.precision import dense, gelu
 
 ROOT = Path(__file__).resolve().parents[1]
 N_ID, CTX, N_TR, K = 8, 48, 7, 16
@@ -41,9 +42,9 @@ def _eager_project(cond: Conditioner, x_id, context):
     """Conditioner.project as the port ran it op by op before the fused
     tail: the reference every way of project is held to."""
     dt = cond.compute_dtype
-    h = cc.gelu(dense(cond.in_x, x_id, dt) + dense(cond.in_ctx, context, dt))
+    h = gelu(dense(cond.in_x, x_id, dt) + dense(cond.in_ctx, context, dt))
     for i in range(cond.n_mid):
-        h = cc.gelu(dense(getattr(cond, f"mid_{i}"), h, dt))
+        h = gelu(dense(getattr(cond, f"mid_{i}"), h, dt))
     out = F.linear(h.to(cond.out.weight.dtype), cond.out.weight,
                    cond.out.bias)
     return out.reshape(*out.shape[:-1], cond.n_transform, -1)
@@ -107,7 +108,7 @@ def test_plain_tail_is_gelu_of_the_two_adds(out_dtype):
     b = torch.randn(64, generator=g).to(torch.bfloat16)
     q = torch.randn(5, 1, 64, generator=g).to(torch.bfloat16)
     got = cc.bias_gelu_plain(p, b, q, out_dtype)
-    want = cc.gelu(p + b + q)
+    want = gelu(p + b + q)
     assert torch.equal(got, want if out_dtype is None
                        else want.to(out_dtype))
     assert torch.equal(cc.bias_gelu(p, b, q, out_dtype), got)
@@ -211,12 +212,12 @@ def test_the_kernel_wrapper_refuses_what_the_kernel_does_not_take(
 
 def test_build_is_keyed_by_its_own_source_and_flags():
     from posteriflow_torch.ops import rqs_cuda
-    lib = rqs_cuda.library_path(cc.SOURCE, cc.NVCC_FLAGS, "conditioner")
-    assert lib.parent == rqs_cuda.BUILD_DIR
+    from posteriflow_torch.utils import native
+    lib = cc.KERNEL.path
+    assert lib.parent == native.BUILD_DIR
     assert lib.name.startswith("libconditioner_")
-    assert lib != rqs_cuda.library_path()
-    cmd = " ".join(rqs_cuda.build_command("nvcc", Path("o.so"), cc.SOURCE,
-                                          cc.NVCC_FLAGS))
+    assert lib != rqs_cuda.KERNEL.path
+    cmd = " ".join(cc.KERNEL.command("nvcc", Path("o.so")))
     assert "arch=compute_90a,code=sm_90a" in cmd and cc.SOURCE.exists()
     assert "-fmad=false" not in cmd and "fast-math" not in cmd
 

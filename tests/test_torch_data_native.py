@@ -21,6 +21,7 @@ import torch
 
 import posteriflow_tpu.data.native_bank as jnb
 import posteriflow_torch.data.native_bank as tnb
+import posteriflow_torch.utils.native as native
 from posteriflow_tpu.data.host_feed import HostNoiseFeed as JFeed
 from posteriflow_torch.data.host_feed import HostNoiseFeed
 from posteriflow_torch.data.noise_bank import bank_filters, save_bank_segment
@@ -66,7 +67,7 @@ def jax_server(jax_lib, monkeypatch):
 
 def test_server_builds_into_build_dir(bank_dir):
     assert tnb.build_native()
-    so = tnb.library_path()
+    so = tnb.LIBRARY.path
     assert so.exists() and so.parent == ROOT / "posteriflow_torch" / "_build"
     srv = tnb.NativeBankServer(bank_dir)
     assert srv.native and srv.n_segments(0) == 3
@@ -120,8 +121,8 @@ def test_failed_build_logs_the_compiler_output(tmp_path, monkeypatch,
                                                caplog, bank_dir):
     bad = tmp_path / "bankd.cpp"
     bad.write_text("int broken( {\n")
-    monkeypatch.setattr(tnb, "SOURCE", bad)
-    monkeypatch.setattr(tnb, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(tnb.LIBRARY, "source", bad)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
     with caplog.at_level(logging.WARNING, logger="posteriflow.data"):
         assert not tnb.build_native()
         srv = tnb.NativeBankServer(bank_dir)

@@ -245,6 +245,7 @@ def test_port_runs_without_jax_msgpack_yaml_ninja():
         "physics.waveforms.taylorf2", "physics.waveforms.imr",
         "physics.waveforms.phenomd", "physics.waveforms.tidal",
         "physics.waveforms.precession", "prior", "utils.precision",
+        "utils.native",
         "tools.bench", "tools.bench_train", "tools.train_npe",
         "train.trainer", "train.diagnostics", "train.gates", "train.loop",
         "utils.config", "inference.importance", "inference.dynesty_bridge",

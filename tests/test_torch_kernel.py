@@ -1,5 +1,6 @@
 """The CUDA RQS kernel's build, binding and wrapper (ops/rqs_cuda.py,
-csrc/rqs.cu). The wrapper takes the plain version on CPU tensors and never
+csrc/rqs.cu), and the build of the port's native libraries
+(utils/native.py). The wrapper takes the plain version on CPU tensors and never
 falls back on a CUDA one; the kernel itself runs only on a card (marker
 `cuda`, skipped without one).
 
@@ -9,6 +10,7 @@ without them it runs with the repository's conftest left out:
     python -m pytest --noconftest tests/test_torch_kernel.py
 """
 
+import hashlib
 import os
 from pathlib import Path
 
@@ -16,8 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from posteriflow_torch.data import native_bank
+from posteriflow_torch.ops import conditioner_cuda
 from posteriflow_torch.ops import rqs as trqs
 from posteriflow_torch.ops import rqs_cuda
+from posteriflow_torch.utils import native
 
 
 def _inputs(k, shape=(300, 5), seed=0):
@@ -138,30 +143,51 @@ def test_find_nvcc_order_and_failure(tmp_path, monkeypatch):
     nvcc.write_text("#!/bin/sh\n")
     nvcc.chmod(0o755)
     monkeypatch.setenv("CUDA_HOME", str(home))
-    assert rqs_cuda.find_nvcc(default_home=str(tmp_path / "none")) \
+    assert native.find_nvcc(default_home=str(tmp_path / "none")) \
         == str(nvcc)
     monkeypatch.delenv("CUDA_HOME")
     monkeypatch.setenv("PATH", str(home / "bin"))
-    assert rqs_cuda.find_nvcc(default_home=str(tmp_path / "none")) \
+    assert native.find_nvcc(default_home=str(tmp_path / "none")) \
         == str(nvcc)
     monkeypatch.setenv("PATH", str(tmp_path / "empty"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        rqs_cuda.find_nvcc(default_home=str(tmp_path / "none"))
+        native.find_nvcc(default_home=str(tmp_path / "none"))
 
 
 def test_build_command_and_library_name():
     """Route (b): a plain-C shared library for sm_90a, built into the
     git-ignored _build directory under a name keyed by the source."""
-    cmd = rqs_cuda.build_command("nvcc", Path("out.so"))
+    cmd = rqs_cuda.KERNEL.command("nvcc", Path("out.so"))
     joined = " ".join(cmd)
     assert "-gencode arch=compute_90a,code=sm_90a" in joined
     for flag in ("-O3", "-shared", "-Xcompiler -fPIC"):
         assert flag in joined
     assert cmd[-1] == str(rqs_cuda.SOURCE) and rqs_cuda.SOURCE.exists()
-    lib = rqs_cuda.library_path()
-    assert lib.parent == rqs_cuda.BUILD_DIR and lib.suffix == ".so"
+    lib = rqs_cuda.KERNEL.path
+    assert lib.parent == native.BUILD_DIR and lib.suffix == ".so"
     ignored = (Path(__file__).resolve().parents[1] / ".gitignore").read_text()
     assert "posteriflow_torch/_build/" in ignored.split()
+
+
+@pytest.mark.parametrize("library, flags, stem, source", [
+    (rqs_cuda.KERNEL, rqs_cuda.NVCC_FLAGS, "rqs", "rqs.cu"),
+    (conditioner_cuda.KERNEL, conditioner_cuda.NVCC_FLAGS, "conditioner",
+     "conditioner.cu"),
+    (native_bank.LIBRARY, native_bank.CXX_FLAGS, "pfbank", "bankd.cpp"),
+], ids=["rqs", "conditioner", "pfbank"])
+def test_library_names_keep_their_cache_key(library, flags, stem, source):
+    """A library's name is lib<stem>_<tag>.so in _build/, the tag the first
+    16 hex digits of sha256(source bytes + " ".join(flags)): a card's
+    cached build stays valid as long as its source and flags do."""
+    pkg = Path(__file__).resolve().parents[1] / "posteriflow_torch"
+    src = pkg / "csrc" / source
+    tag = hashlib.sha256(src.read_bytes()
+                         + " ".join(flags).encode()).hexdigest()[:16]
+    assert library.source == src and library.flags == flags
+    assert library.path == pkg / "_build" / f"lib{stem}_{tag}.so"
+    cmd = library.command("cc", Path("out.so"))
+    assert cmd[0] == "cc" and tuple(cmd[1:1 + len(flags)]) == flags
+    assert cmd[-3:] == ["-o", "out.so", str(src)]
 
 
 @pytest.fixture
@@ -270,6 +296,53 @@ def test_kernel_counts_one_per_launch_on_card(cuda_device):
         assert rqs_cuda.KERNEL.launches == before + i + 1
     rqs_cuda.rqs_forward(x, raw, 8, bias=torch.zeros(23, device=cuda_device))
     assert rqs_cuda.KERNEL.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse, grad", [(False, False), (False, True),
+                                           (True, False)],
+                         ids=["fwd", "fwd_grad", "inv"])
+def test_wrapper_checks_once_and_launches_unchecked_on_card(
+        cuda_device, monkeypatch, inverse, grad):
+    """rqs_forward / rqs_inverse (with grad: through RqsForwardFn) reach the
+    kernel through KERNEL._launch and never through the checked
+    KERNEL.launch. Each check of the caller's arguments runs once; the
+    alignment check sees raw alone, since the wrapper builds an aligned x;
+    the result is the plain version's bits, one launch."""
+    k, r = 16, 47
+    calls = {}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            if name == "_check_aligned":
+                calls["aligned_tensors"] = len(args)
+            return fn(*args, **kwargs)
+        return wrapper
+    for name in ("_check_operands", "_check_bias_and_rows",
+                 "_check_spline_args", "_check_aligned"):
+        monkeypatch.setattr(rqs_cuda, name,
+                            counted(name, getattr(rqs_cuda, name)))
+    for name in ("launch", "_launch"):
+        monkeypatch.setattr(rqs_cuda.KERNEL, name,
+                            counted(name, getattr(rqs_cuda.KERNEL, name)))
+    xw, raw = _inputs(k, shape=(4, 250, 8), seed=3)
+    x = torch.from_numpy(xw).to(cuda_device)[..., 1:]     # not contiguous
+    raw = torch.from_numpy(raw[..., 1:, :].copy()).to(cuda_device)
+    bias = torch.linspace(-0.5, 0.5, r, device=cuda_device)
+    x.requires_grad_(grad)
+    before = rqs_cuda.KERNEL.launches
+    fn = rqs_cuda.rqs_inverse if inverse else rqs_cuda.rqs_forward
+    out, logdet = fn(x, raw, k, bias=bias)
+    if grad:
+        (out.sum() + logdet.sum()).backward()
+    assert calls == {"_check_operands": 1, "_check_bias_and_rows": 1,
+                     "_check_aligned": 1, "aligned_tensors": 1,
+                     "_launch": 1}
+    assert rqs_cuda.KERNEL.launches == before + 1
+    po, pl_ = _torch_fn(inverse)(x.detach(), raw + bias, k)
+    assert torch.equal(out.detach(), po) and torch.equal(logdet.detach(),
+                                                         pl_)
 
 
 def test_kernel_source_is_plain_c():

@@ -135,7 +135,7 @@ def test_forward_fn_refuses_double_backward(monkeypatch):
             num_bins, tail_bound, bias=bias)
         return g_x.detach(), g_raw.detach().reshape(raw.shape)
 
-    monkeypatch.setattr(rqs_cuda.KERNEL, "launch", forward_launch)
+    monkeypatch.setattr(rqs_cuda.KERNEL, "_launch", forward_launch)
     monkeypatch.setattr(rqs_cuda.GRAD_KERNEL, "_launch", grad_launch)
     x, raw, bias = _spline_inputs("cpu")
     x.requires_grad_(True)

@@ -206,7 +206,7 @@ def _swap_launches(monkeypatch):
             num_bins, tail_bound, bias=bias)
         return g_x, g_raw.reshape(raw.shape)
 
-    monkeypatch.setattr(rqs_cuda.KERNEL, "launch", forward_launch)
+    monkeypatch.setattr(rqs_cuda.KERNEL, "_launch", forward_launch)
     monkeypatch.setattr(rqs_cuda.GRAD_KERNEL, "_launch", grad_launch)
     return launched
 
