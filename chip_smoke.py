@@ -39,6 +39,17 @@ Phases (any failure exits non-zero and prints no result line):
       128, bit-equal to the eager ops, timed beside their byte bound at
       3.35 TB/s and the eager sequence; in (c) it launches twice a flow
       layer.
+  (b3) the training simulator's waveforms (csrc/waveform.cu, which
+      replaces no Pallas kernel: XLA fused these jnp passes on the TPU;
+      bound by special functions): the build and its registers and
+      spills; at the training shape (B = 1,024 events x 5 slots), the
+      precessing (P = 15) and aligned (P = 11) sets, the kernels' gate SNR
+      and kept slots' sum against the plain passes (SNR to rtol 1e-5,
+      gates equal but within 1e-5 of min_snr, sig_fd bit for bit), two
+      launches bit-identical;
+      wf_snr and wf_sum timed beside their bound (special-function
+      operations at ~4 T a second, bytes at 3.35 TB/s) and the plain
+      passes, and gated_signal_sum's call fused against eager.
   (c) serve 4 requests through `infer` (raw 32 s coloured Gaussian noise per
       detector from the design ASD, 5000 draws, ranks 0, 1, 0, 1); the
       launch counter must grow by one per flow layer per request. The
@@ -86,7 +97,8 @@ Phases (any failure exits non-zero and prints no result line):
       split by CUDA events, steps/s, events/s, peak memory, MFU, NLL per
       step (finite, step 0 in [-8, -3]; parameters still at step 0 since
       lr(0) = 0, moved at step 1); every step launches 10 forward and 10
-      backward spline kernels and no plain spline.
+      backward spline kernels and no plain spline, and its simulate_batch
+      wf_snr and wf_sum once each.
   (n) fit 2 epochs x 5 steps (64 validation events) into a temporary
       directory: history.json with the keys of the release's own JAX
       record, finite gate metrics, ckpt/last and ckpt/best; resume_from
@@ -685,6 +697,145 @@ def phase_conditioner(torch, card):
                   f"back), {nbytes / 1e6:.1f} MB, bound "
                   f"{1e3 * bound_ms:.2f} us ({100 * bound_ms / k_ms:.1f}% "
                   f"of it); eager ops {1e3 * p_ms:.2f} us [{card}]")
+    return out
+
+
+# the waveform kernels' bound: special-function operations (cube roots,
+# logs, exps, atan, sincos, hypot) a (slot, bin) point, reckoned from
+# csrc/waveform.cu's formulas, against the H100's ~4 T a second (132 SMs x
+# 16 a clock at 1.98 GHz)
+WF_SFU_PER_S = 4.2e12
+WF_SFU_SUM = {15: 30, 11: 20}      # amplitude, phase, 3 x sincos (+ twist)
+WF_SFU_SNR = {15: 15, 11: 6}       # amplitude (+ twist modulus, |c_d|)
+WF_EVENTS, WF_EDGE = 1024, 1e-5
+
+
+def phase_waveform(torch, card):
+    """(b3) the simulator's waveform kernels (ops/waveform_cuda.py, csrc/
+    waveform.cu): the build and its registers; at the training shape, for
+    the precessing and aligned sets, the kernels against the plain passes
+    and bit-identical from launch to launch; wf_snr and wf_sum timed on
+    the device beside their bound and the plain passes; the whole
+    gated_signal_sum fused against eager."""
+    from posteriflow_torch.ops import waveform_cuda as wc
+    from posteriflow_torch.physics import simulator as sim
+    from posteriflow_torch.physics.constants import DELTA_F, N_DETECTORS
+    from posteriflow_torch.physics.signal_table import waveform_table
+    from posteriflow_torch.prior import sample_batch
+    t0 = time.perf_counter()
+    wc.KERNEL.load()
+    built = wc.KERNEL.build_seconds
+    print(f"(b3) waveform library ready in {time.perf_counter() - t0:.2f} s "
+          f"({'nvcc %.2f s' % built if built is not None else 'cached'}) "
+          f"[{card}]")
+    for line in wc.KERNEL.build_log.splitlines():
+        if "registers" in line or "spill" in line or "wf_" in line:
+            print(f"    ptxas: {line.strip()}")
+    spills = [int(m.group(1)) for m in re.finditer(
+        r"(\d+) bytes spill stores", wc.KERNEL.build_log)]
+    check(spills and not any(spills),
+          f"the waveform kernels should not spill: {spills}")
+    cfg = sim.sim_config_from_dict(json.loads(
+        open("pfbench/configs/npe_r7.json").read())["config"]["sim"])
+    asd = sim.design_asd(DEVICE)
+    out = {}
+    for p in (15, 11):
+        g = torch.Generator(DEVICE).manual_seed(24 + p)
+        params, n_sig = sample_batch(WF_EVENTS, cfg.prior, g, DEVICE)
+        params = params[..., :p].contiguous()
+        flat = params.reshape(-1, p)
+        dec = 2 if p == 15 else 4
+        runs = {}
+        with torch.no_grad():
+            table = waveform_table(flat)
+            tw = sim._twist(flat, table, dec, cfg.f_lower)
+            tw1 = sim._twist(flat, table, 1, cfg.f_lower)
+            for name, way in (("kernel", wc.KERNEL), ("plain", wc.PLAIN)):
+                snr = way.snr(table, tw, asd, dec, cfg.f_lower)
+                _, keep, _, _ = sim._gate_from_snr(
+                    params, snr.reshape(WF_EVENTS, -1), n_sig, cfg.min_snr)
+                runs[name] = dict(table=table, tw=tw, snr=snr, keep=keep,
+                                  tw1=tw1, sum=way.sum(table, tw1, keep, asd,
+                                                       cfg.f_lower))
+            k, q = runs["kernel"], runs["plain"]
+            again = wc.KERNEL.sum(k["table"], k["tw1"], k["keep"], asd,
+                                  cfg.f_lower)
+            torch.cuda.synchronize()
+            snr_rel = float(((k["snr"] - q["snr"]).abs()
+                             / q["snr"].abs().clamp_min(1e-30)).max())
+            same = (k["keep"] == q["keep"]).all(-1)
+            # a gate may differ only where a slot's SNR is within WF_EDGE
+            # of min_snr
+            edge = ((q["snr"].reshape(WF_EVENTS, -1) / cfg.min_snr - 1.0)
+                    .abs() <= WF_EDGE).any(-1)
+            peak = q["sum"].abs().amax(dim=(1, 2)).clamp_min(1e-30)
+            err = ((k["sum"] - q["sum"]).abs().amax(dim=(1, 2))
+                   / peak)[same & ~edge]
+            check(snr_rel <= 1e-5, f"wf_snr off the plain SNR by {snr_rel}")
+            check(bool((same | edge).all()),
+                  f"the gates differ in {int((~(same | edge)).sum())} "
+                  f"events away from min_snr")
+            check(float(err.max()) == 0.0,
+                  f"wf_sum off the plain sum by {float(err.max())} of peak")
+            check(torch.equal(again, k["sum"]),
+                  "two launches of wf_sum differ")
+
+            def snr_call(w=wc.KERNEL, r=k):
+                return w.snr(r["table"], r["tw"], asd, dec, cfg.f_lower)
+
+            def sum_call(w=wc.KERNEL, r=k):
+                return w.sum(r["table"], r["tw1"], r["keep"], asd,
+                             cfg.f_lower)
+
+            t = {}
+            for kname, fn, plain_fn in (
+                    ("wf_snr", snr_call,
+                     lambda: snr_call(wc.PLAIN, q)),
+                    ("wf_sum", sum_call,
+                     lambda: sum_call(wc.PLAIN, q))):
+                dev_ms = kernel_device_ms(torch, fn, kname)
+                ev_ms = cuda_time_ms(fn, 20)
+                t[kname] = {"ms": ev_ms if dev_ms is None else dev_ms,
+                            "events_ms": ev_ms,
+                            "plain_ms": cuda_time_ms(plain_fn, 3)}
+            fused_ms = cuda_time_ms(
+                lambda: sim.gated_signal_sum(params, n_sig, asd, cfg), 5)
+            passes = wc.passes
+            wc.passes = lambda *a: wc.PLAIN
+            try:
+                eager_ms = cuda_time_ms(
+                    lambda: sim.gated_signal_sum(params, n_sig, asd, cfg), 3)
+            finally:
+                wc.passes = passes
+        f_band = torch.arange(0, asd.shape[-1], device=DEVICE) * DELTA_F
+        in_band = int((f_band >= cfg.f_lower).sum())
+        kept = int(k["keep"].sum())
+        n_slots = flat.shape[0]
+        twist_b = 0 if p == 11 else 2 * 8
+        bounds = {
+            "wf_snr": (n_slots * (in_band // dec) * WF_SFU_SNR[p],
+                       n_slots * (asd.shape[-1] // dec // 8 + 1) * twist_b
+                       + 4 * N_DETECTORS * asd.shape[-1]),
+            "wf_sum": (kept * in_band * WF_SFU_SUM[p],
+                       8 * N_DETECTORS * asd.shape[-1] * WF_EVENTS
+                       + kept * (asd.shape[-1] // 8 + 1) * twist_b)}
+        for kname, (ops, nbytes) in bounds.items():
+            bound_ms = 1e3 * max(ops / WF_SFU_PER_S,
+                                 nbytes / PEAK_BYTES_PER_S)
+            r = t[kname]
+            r.update(bound_ms=bound_ms, ops=ops, bytes=nbytes)
+            print(f"(b3) {kname}<{'prec' if p == 15 else 'aligned'}> at "
+                  f"{WF_EVENTS} x {n_slots // WF_EVENTS} slots ({kept} kept)"
+                  f": {r['ms']:.4f} ms device ({r['events_ms']:.4f} by CUDA "
+                  f"events), bound {bound_ms:.4f} ms ({ops / 1e9:.2f} G "
+                  f"special-function ops, {nbytes / 1e6:.1f} MB; "
+                  f"{100 * bound_ms / r['ms']:.1f}% of it); plain "
+                  f"{r['plain_ms']:.3f} ms [{card}]")
+        print(f"(b3) P={p}: SNR rel err {snr_rel:.2e}, sum err "
+              f"{float(err.max()):.2e} of peak, gates equal in "
+              f"{int(same.sum())} of {WF_EVENTS}; gated_signal_sum "
+              f"{fused_ms:.3f} ms fused, {eager_ms:.3f} ms eager [{card}]")
+        out[p] = {**t, "fused_ms": fused_ms, "eager_ms": eager_ms}
     return out
 
 
@@ -1658,6 +1809,7 @@ def phase_train_steps(torch, plain, rqs_cuda, cfg, card):
     """(m, part 2) TRAIN_STEPS steps of simulate -> batch_nll -> backward ->
     clip -> AdamW at the flagship's full width, from the release's weights
     (--init-from), timed by part with CUDA events."""
+    from posteriflow_torch.ops import waveform_cuda as wc
     from posteriflow_torch.physics.simulator import simulate_batch
     from posteriflow_torch.tools.bench_train import (PEAK_BF16_FLOPS,
                                                      flops_per_step)
@@ -1666,21 +1818,24 @@ def phase_train_steps(torch, plain, rqs_cuda, cfg, card):
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     layers = cfg.npe.flow_layers
     counts, restore = _count_plain(torch, plain)
-    nlls, parts, walls, launches = [], [], [], []
+    nlls, parts, walls, launches, wf_launches = [], [], [], [], []
     moved = []
     torch.cuda.reset_peak_memory_stats()
     rqs_cuda.KERNEL.launches = rqs_cuda.GRAD_KERNEL.launches = 0
+    wc.KERNEL.launches = 0
     try:
         for i in range(TRAIN_STEPS):
             before = [p.detach().clone() for p in state.model.parameters()]
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
             f0 = rqs_cuda.KERNEL.launches
             b0 = rqs_cuda.GRAD_KERNEL.launches
+            w0 = wc.KERNEL.launches
             t0 = time.perf_counter()
             ev[0].record()
             batch = simulate_batch(cfg.batch_size, cfg.sim, device=DEVICE,
                                    generator=gen)
             ev[1].record()
+            wf_launches.append(wc.KERNEL.launches - w0)
             state.opt.zero_grad()
             loss = batch_nll(state.model, batch)
             ev[2].record()
@@ -1722,8 +1877,9 @@ def phase_train_steps(torch, plain, rqs_cuda, cfg, card):
           f"step counted (matmuls and convs, not the spline kernels), MFU "
           f"{mfu:.4%} of the 989 TFLOP/s bf16 peak; spline launches a step "
           f"(forward, backward) {sorted(set(launches))}, plain spline calls "
-          f"{counts}; parameters moved at step 0: {moved[0]}, step 1: "
-          f"{moved[1]}")
+          f"{counts}; waveform launches a simulate_batch "
+          f"{sorted(set(wf_launches))}; parameters moved at step 0: "
+          f"{moved[0]}, step 1: {moved[1]}")
     check(all(math.isfinite(v) for v in nlls), f"non-finite NLL: {nlls}")
     check(TRAIN_NLL0[0] <= nlls[0] <= TRAIN_NLL0[1],
           f"step-0 NLL {nlls[0]} outside {TRAIN_NLL0}")
@@ -1733,7 +1889,11 @@ def phase_train_steps(torch, plain, rqs_cuda, cfg, card):
           f"spline launches by step {launches}, expected {layers} each way")
     check(counts == {"forward": 0, "inverse": 0},
           f"the plain spline ran in the train steps: {counts}")
+    check(all(n == 2 for n in wf_launches),
+          f"wf_snr + wf_sum launches by simulate_batch {wf_launches}, "
+          f"expected 2 each")
     return {"nlls": nlls, "split_ms": mean, "step_ms": step_ms,
+            "wf_launches": sum(wf_launches),
             "steps_per_s": steps_per_s,
             "events_per_s": steps_per_s * cfg.batch_size, "peak_gib": peak,
             "flops": flops, "mfu": mfu, "profile": profile,
@@ -5735,6 +5895,7 @@ def main() -> int:
         x, raw, bias, errs = phase_kernel_check(torch, plain, rqs_cuda,
                                                 card)
         cond = phase_conditioner(torch, card)
+        wave = phase_waveform(torch, card)
 
         state_dict, cfg, meta = load_release(RELEASE)
         engine = load_model(RELEASE, device=DEVICE)
@@ -6060,6 +6221,19 @@ def main() -> int:
         "max_abs_err": 0.0,
         **{f"rows_{r}_h{h}_pass_{name}": t
            for (r, h, name), t in cond.items()},
+        "library_ms": None,
+    })
+    kernels.append({
+        "name": "wf_snr<PREC>, wf_sum<PREC> (the training simulator's gate "
+                "SNR and kept slots' whitened sum)",
+        "route": "cuda",
+        "source": "posteriflow_torch/csrc/waveform.cu",
+        "replaces": None,
+        "launches_by_path": {
+            f"{TRAIN_STEPS} train steps' simulate_batch (m)":
+                train["wf_launches"]},
+        **{f"b{WF_EVENTS}_p{p}_{k}": v for p, r in wave.items()
+           for k, v in r.items()},
         "library_ms": None,
     })
     print(f"(e) done in {time.perf_counter() - t_start:.1f} s [{card}]; "

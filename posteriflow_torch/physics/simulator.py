@@ -39,28 +39,23 @@ import dataclasses
 import math
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from posteriflow_torch.data.noise_bank import (NoiseBank, RealNoiseDraws,
                                                draw_real_noise,
                                                real_noise_from_draws)
-from posteriflow_torch.physics.constants import (DELTA_F, DURATION, F_LOWER,
-                                                 FREQS, N_DETECTORS,
+from posteriflow_torch.ops import waveform_cuda
+from posteriflow_torch.physics.constants import (F_LOWER, N_DETECTORS,
                                                  N_SAMPLES)
-from posteriflow_torch.physics.projection import (GMST_REF, OMEGA_EARTH,
-                                                  network_response)
 from posteriflow_torch.physics.psd import default_network_asd
-from posteriflow_torch.physics.waveforms.precession import (
-    spin_components, twist_factors_decimated)
-from posteriflow_torch.physics.waveforms.tidal import phenomd_matter_amp_phase
+from posteriflow_torch.physics.signal_table import (Twist, coarse_twist,
+                                                    precessing, snr_plain,
+                                                    waveform_table,
+                                                    white_fd_plain)
 from posteriflow_torch.physics.whiten import fd_white_to_td
 from posteriflow_torch.prior import PriorConfig, loudness, sample_batch
 from posteriflow_torch.utils.constants import device_constant
-from posteriflow_torch.utils.logging import span
-
-_FREQS_NP = np.asarray(FREQS, dtype=np.float32)
-_SQRT_4DF = float(np.sqrt(4.0 * DELTA_F))
+from posteriflow_torch.utils.logging import count, span
 
 # Non-empty proper subsets of (H1, L1, V1) kept under detector dropout
 _KEEP_CONFIGS = ((1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (1, 0, 1),
@@ -189,136 +184,39 @@ def real_noise(real_draws: RealDraws, bank: Optional[NoiseBank] = None,
         return RealNoise(real_draws.use_u, *real_feed)
 
 
-def _freqs(device, decimate: int = 1) -> torch.Tensor:
-    return device_constant(("freqs", decimate), device, lambda: torch.tensor(
-        _FREQS_NP[::decimate]))
-
-
 def design_asd(device) -> torch.Tensor:
     """physics.psd.default_network_asd on `device`, made once."""
     return device_constant("design_asd", device,
                            lambda: default_network_asd(device="cpu"))
 
 
-def _unpack(params: torch.Tensor):
-    """[N, P] -> columns [N, 1] (each broadcasts against a grid [F])."""
-    return [c[:, None] for c in params.unbind(-1)]
-
-
-def _amp_phase(freqs, params: torch.Tensor, f_lower: float, phase: bool):
-    """PhenomD × matter (amp, psi) [N, F] of aligned-spin params [N, 11]."""
-    c = _unpack(params)
-    return phenomd_matter_amp_phase(freqs, c[0], c[1], c[9], c[10], c[2],
-                                    c[7], f_lower, phase=phase)
-
-
-def _response(ra, dec, psi_pol, t_off):
-    """(F₊, F×, Δt) [N, n_det] at the event's sidereal time."""
-    gmst = GMST_REF + OMEGA_EARTH * t_off
-    return network_response(ra, dec, psi_pol, gmst)
+def _twist(params: torch.Tensor, table: torch.Tensor, decimate: int,
+           f_lower: float) -> Optional[Twist]:
+    """The coarse twist of a precessing set, None for the aligned one."""
+    return (coarse_twist(params, table, decimate, f_lower)
+            if precessing(params) else None)
 
 
 def signal_white_fd(params: torch.Tensor, asd: torch.Tensor,
                     f_lower: float = F_LOWER) -> torch.Tensor:
     """Whitened per-detector FD strain [N, n_det, N_RFFT] complex64 of N
     signals, params [N, P] physical (P = 11 aligned, 15 precessing). In this
-    normalization a detector's optimal SNR is the L2 norm over bins.
-
-    Aligned set: h₊ and hₓ share one phase series, so each detector's
-    response folds into one magnitude and phase,
-    h_d(f) = A(f)·W_d·e^{-i(Ψ + 2πfτ_d − φ_d)} / ASD_d · √(4Δf)."""
-    if params.shape[-1] >= 15:
-        return _signal_white_fd_prec(params, asd, f_lower)
-    (m1, m2, d, ra, dec, theta_jn, psi_pol, phase, t_off, a1,
-     a2) = params.unbind(-1)
-    freqs = _freqs(params.device)
-    amp, psi = _amp_phase(freqs, params, f_lower, True)             # [N, F]
-    ci = torch.cos(theta_jn)
-    f_plus, f_cross, dt = _response(ra, dec, psi_pol, t_off)        # [N, D]
-    wp = f_plus * (0.5 * (1.0 + ci * ci))[:, None]
-    wc = f_cross * ci[:, None]
-    w = torch.sqrt(wp * wp + wc * wc)
-    phi_d = torch.atan2(wc, wp)
-    tau = 0.5 * DURATION + t_off[:, None] + dt
-    cycles = torch.remainder(freqs * tau[..., None], 1.0)         # [N, D, F]
-    theta = psi[:, None, :] + (2.0 * math.pi) * cycles - phi_d[..., None]
-    mag = (amp[:, None, :] * w[..., None] / torch.clamp_min(asd, 1e-38)) \
-        * _SQRT_4DF
-    return torch.complex(mag * torch.cos(theta), mag * -torch.sin(theta))
-
-
-def _twist_response(params: torch.Tensor, decimate: int, f_lower: float,
-                    phase: bool):
-    """Shared front of the precessing paths: (amp, psi [N, F], the complex
-    per-detector response c_d [N, D, F], Δt [N, D]) with
-    c_d = F₊ᵈ (SP+SM)/2 + i Fₓᵈ (SP−SM)/2."""
-    (m1, m2, d, ra, dec, theta_jn, psi_pol, phase_c, t_off, a1, a2,
-     t1, t2, p12, pjl) = _unpack(params)
-    chi_1z, chi_2z, chi_p = spin_components(a1, a2, t1, t2, p12, m1, m2)
-    freqs = _freqs(params.device, decimate)
-    amp, psi = phenomd_matter_amp_phase(freqs, m1, m2, chi_1z, chi_2z, d,
-                                        phase_c, f_lower, phase=phase)
-    sp, sm = twist_factors_decimated(_FREQS_NP[::decimate], m1, m2, chi_1z, chi_2z, chi_p,
-                                     theta_jn, f_lower, alpha0=pjl,
-                                     decimate=8)
-    f_plus, f_cross, dt = _response(params[:, 3], params[:, 4],
-                                    params[:, 6], params[:, 8])
-    c_d = (f_plus[..., None] * (0.5 * (sp + sm))[:, None, :]
-           + 1j * f_cross[..., None] * (0.5 * (sp - sm))[:, None, :])
-    return amp, psi, c_d, dt
-
-
-def _signal_white_fd_prec(params: torch.Tensor, asd: torch.Tensor,
-                          f_lower: float = F_LOWER) -> torch.Tensor:
-    """Whitened FD strain [N, n_det, N_RFFT] of N precessing signals,
-    params [N, 15]: the general projection of the twisted polarizations,
-    h_d = (F₊ᵈ h̃₊ + Fₓᵈ h̃ₓ) e^{-2πifτ_d} / ASD_d · √(4Δf), with the
-    carrier e^{-iΨ} folded into the per-detector shift."""
-    amp, psi, c_d, dt = _twist_response(params, 1, f_lower, True)
-    freqs = _freqs(params.device)
-    tau = 0.5 * DURATION + params[:, 8, None] + dt
-    cycles = torch.remainder(freqs * tau[..., None], 1.0)
-    theta = psi[:, None, :] + (2.0 * math.pi) * cycles
-    mag = (0.5 * amp[:, None, :] / torch.clamp_min(asd, 1e-38)) * _SQRT_4DF
-    carrier = torch.complex(mag * torch.cos(theta), mag * -torch.sin(theta))
-    return (carrier * c_d).to(torch.complex64)
-
-
-def _signal_snr_prec(params: torch.Tensor, asd: torch.Tensor,
-                     f_lower: float = F_LOWER,
-                     decimate: int = 1) -> torch.Tensor:
-    """Network SNR [N] of precessing signals without the phase chain:
-    |h_d| = (A/2)·|c_d| (the e^{2iε} of the twist cancels in the modulus);
-    a midpoint rule on every decimate-th bin."""
-    amp, _, comb, _ = _twist_response(params, decimate, f_lower, False)
-    w2 = torch.abs(comb) ** 2                                  # [N, D, F/D]
-    inv_asd2 = 1.0 / torch.clamp_min(asd[:, ::decimate], 1e-38) ** 2
-    band = torch.sum(w2 * inv_asd2, dim=-2)                    # [N, F/D]
-    return torch.sqrt(4.0 * DELTA_F * decimate
-                      * torch.sum((0.5 * amp) ** 2 * band, dim=-1))
+    normalization a detector's optimal SNR is the L2 norm over bins
+    (physics/signal_table.py's white_fd_plain on a fresh table)."""
+    table = waveform_table(params)
+    return white_fd_plain(table, _twist(params, table, 1, f_lower), asd,
+                          f_lower)
 
 
 def signal_snr_amp_only(params: torch.Tensor, asd: torch.Tensor,
                         f_lower: float = F_LOWER,
                         decimate: int = 1) -> torch.Tensor:
-    """Network SNR [N] of N signals from the amplitude alone: the phase and
-    every time shift drop out of |h_d(f)| = A(f)·w_d, so
-    ρ² = 4Δf Σ_f A² Σ_d w_d²/ASD_d², taken on every decimate-th bin and
-    scaled by decimate."""
-    if params.shape[-1] >= 15:
-        return _signal_snr_prec(params, asd, f_lower, decimate)
-    (m1, m2, d, ra, dec, theta_jn, psi_pol, phase, t_off, a1,
-     a2) = params.unbind(-1)
-    amp, _ = _amp_phase(_freqs(params.device, decimate), params, f_lower,
-                        False)
-    ci = torch.cos(theta_jn)
-    f_plus, f_cross, _ = _response(ra, dec, psi_pol, t_off)
-    w2 = ((f_plus * (0.5 * (1.0 + ci * ci))[:, None]) ** 2
-          + (f_cross * ci[:, None]) ** 2)                       # [N, D]
-    inv_asd2 = 1.0 / torch.clamp_min(asd[:, ::decimate], 1e-38) ** 2
-    band = torch.sum(w2[..., None] * inv_asd2, dim=-2)          # [N, F/D]
-    return torch.sqrt(4.0 * DELTA_F * decimate
-                      * torch.sum(amp * amp * band, dim=-1))
+    """Network SNR [N] of N signals from the amplitude alone, taken on
+    every decimate-th bin and scaled by decimate (signal_table.snr_plain
+    on a fresh table)."""
+    table = waveform_table(params)
+    return snr_plain(table, _twist(params, table, decimate, f_lower), asd,
+                     decimate, f_lower)
 
 
 def _gate_from_snr(params: torch.Tensor, snr_orig: torch.Tensor,
@@ -449,20 +347,27 @@ def simulate_event(params: torch.Tensor, n_sig, asd: torch.Tensor,
 
 def gated_signal_sum(params: torch.Tensor, n_sig: torch.Tensor,
                      asd: torch.Tensor, cfg: SimConfig):
-    """The two passes of simulate_batch: the amplitude-only gate SNR of
-    every slot, the gate, then every slot's whitened waveform and the
-    masked slot sum. -> (params_ranked, sig_fd [B, D, F], snr_ranked,
-    n_valid)."""
+    """The two passes of simulate_batch over one table of the slots'
+    per-signal constants: the amplitude-only gate SNR of every slot, the
+    gate, then the whitened waveforms of the kept slots summed an event.
+    -> (params_ranked, sig_fd [B, D, F], snr_ranked, n_valid). A CUDA
+    float32 call that needs no gradient runs them as kernels, every other
+    as their plain versions (ops/waveform_cuda.py: `passes`); the call
+    counts `waveform_fused` or `waveform_eager` by the way it takes."""
     with span("pf.sim.waveform"):
         b, s, p = params.shape
         flat = params.reshape(b * s, p)
-        snr = signal_snr_amp_only(flat, asd, cfg.f_lower,
-                                  decimate=4 if p < 15 else 2).reshape(b, s)
+        way = waveform_cuda.passes(flat, asd)
+        count("waveform_fused" if way is waveform_cuda.KERNEL
+              else "waveform_eager")
+        table = waveform_table(flat)
+        decimate = 4 if p < 15 else 2
+        snr = way.snr(table, _twist(flat, table, decimate, cfg.f_lower),
+                      asd, decimate, cfg.f_lower).reshape(b, s)
         params_r, keep, snr_r, n_valid = _gate_from_snr(params, snr, n_sig,
                                                         cfg.min_snr)
-        h_w = signal_white_fd(flat, asd, cfg.f_lower).reshape(
-            b, s, N_DETECTORS, -1)
-        sig_fd = torch.sum(keep[:, :, None, None] * h_w, dim=1)
+        sig_fd = way.sum(table, _twist(flat, table, 1, cfg.f_lower), keep,
+                         asd, cfg.f_lower)
         return params_r, sig_fd, snr_r, n_valid
 
 

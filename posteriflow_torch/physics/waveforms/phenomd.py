@@ -22,14 +22,18 @@ Regions (geometric frequency Mf = f·M_sec):
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from posteriflow_torch.physics.constants import MTSUN_SI
 from posteriflow_torch.physics.waveforms.imr import qnm_frequency
-from posteriflow_torch.physics.waveforms.taylorf2 import (cbrt,
+from posteriflow_torch.physics.waveforms.taylorf2 import (TaylorF2Coeffs,
+                                                          cbrt,
                                                           polarizations,
-                                                          taylorf2_amp_phase)
+                                                          taylorf2_coeffs,
+                                                          taylorf2_eval)
+from posteriflow_torch.utils.constants import device_constant
 
 _AMP_F_JOIN_INS = 0.014     # amplitude inspiral/intermediate boundary [Mf]
 _PHI_F_JOIN_INS = 0.018     # phase inspiral/intermediate boundary [Mf]
@@ -164,13 +168,23 @@ _TABLE = {
 }
 
 
-def _lam(name: str, eta, xi):
-    c = _TABLE[name]
+_LAM_NAMES = tuple(_TABLE)
+
+
+def _lam_all(eta, xi) -> dict:
+    """Every λ of Table V at once: the rows as [19] constants in eta's
+    dtype against eta, xi [..., 1]; each entry takes the same float ops,
+    in the same order, as a λ evaluated on its own."""
+    key = ("phenomd_lambda_table", eta.dtype)
+    c = device_constant(key, eta.device, lambda: torch.tensor(
+        list(zip(*_TABLE.values())), dtype=eta.dtype)).unbind(0)
+    eta, xi = eta[..., None], xi[..., None]
     eta2 = eta * eta
-    return (c[0] + c[1] * eta
-            + xi * (c[2] + c[3] * eta + c[4] * eta2)
-            + xi * xi * (c[5] + c[6] * eta + c[7] * eta2)
-            + xi * xi * xi * (c[8] + c[9] * eta + c[10] * eta2))
+    lam = (c[0] + c[1] * eta
+           + xi * (c[2] + c[3] * eta + c[4] * eta2)
+           + xi * xi * (c[5] + c[6] * eta + c[7] * eta2)
+           + xi * xi * xi * (c[8] + c[9] * eta + c[10] * eta2))
+    return dict(zip(_LAM_NAMES, lam.unbind(-1)))
 
 
 def _delta(eta):
@@ -350,11 +364,11 @@ def _sigma_phase(mf, eta, lam):
             + 0.5 * lam["sigma4"] * mf * mf) / eta
 
 
-def _phase(freqs, mf, tf2_psi, m_sec, eta, lam, f_rd, f_damp, tf2_args):
-    """Ψ [..., F]: TaylorF2+σ, then the β ansatz, then the α ansatz, with
-    the integration constants that make it C¹ at both joins."""
+def _phase_joins(m_sec, eta, lam, f_rd, f_damp, tf2_coeffs):
+    """(c1_int, c2_int, c1_mrd, c2_mrd): the integration constants that
+    make Ψ C¹ at both joins, Mf = 0.018 and Mf = f_RD/2."""
     def psi_ins(f_hz):
-        psi = taylorf2_amp_phase(f_hz, *tf2_args)[1]
+        psi = taylorf2_eval(f_hz, tf2_coeffs)[1]
         return psi + _sigma_phase(f_hz * m_sec, eta, lam)
 
     f1 = _PHI_F_JOIN_INS / m_sec                     # Hz
@@ -374,14 +388,23 @@ def _phase(freqs, mf, tf2_psi, m_sec, eta, lam, f_rd, f_damp, tf2_args):
                                f_rd, f_damp) * m_sec
     c1_mrd = psi2 - _phi_mrd(f2_geo, eta, a1, a2, a3, a4, a5,
                              f_rd, f_damp) - c2_mrd * f2
+    return c1_int, c2_int, c1_mrd, c2_mrd
 
+
+def _phase(freqs, mf, tf2_psi, c: "PhenomDCoeffs"):
+    """Ψ [..., F]: TaylorF2+σ, then the β ansatz, then the α ansatz, each
+    bin in its own region."""
+    lam = c.lam
+    b1, b2, b3 = lam["beta1"], lam["beta2"], lam["beta3"]
+    a1, a2, a3 = lam["alpha1"], lam["alpha2"], lam["alpha3"]
+    a4, a5 = lam["alpha4"], lam["alpha5"]
     f = torch.clamp_min(freqs, 1.0)
-    psi_ins_v = tf2_psi + _sigma_phase(mf, eta, lam)
-    psi_int = _phi_int(mf, eta, b1, b2, b3) + c1_int + c2_int * f
-    psi_mrd = (_phi_mrd(mf, eta, a1, a2, a3, a4, a5, f_rd, f_damp)
-               + c1_mrd + c2_mrd * f)
+    psi_ins_v = tf2_psi + _sigma_phase(mf, c.eta, lam)
+    psi_int = _phi_int(mf, c.eta, b1, b2, b3) + c.c1_int + c.c2_int * f
+    psi_mrd = (_phi_mrd(mf, c.eta, a1, a2, a3, a4, a5, c.f_rd, c.f_damp)
+               + c.c1_mrd + c.c2_mrd * f)
     return torch.where(mf < _PHI_F_JOIN_INS, psi_ins_v,
-                       torch.where(mf < f2_geo, psi_int, psi_mrd))
+                       torch.where(mf < 0.5 * c.f_rd, psi_int, psi_mrd))
 
 
 def _row_v(x):
@@ -393,32 +416,44 @@ def _row_d(x):
                         3.0 * x * x, 4.0 * x ** 3], -1)
 
 
-def phenomd_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
-                      luminosity_distance, phase_c, f_lower: float = 20.0,
-                      phase: bool = True):
-    """(amp, psi) [..., F] in scaled strain/Hz and rad, h̃ = A e^{-iΨ},
-    coalescence at t = 0. With phase=False psi is None and the phase chain
-    (its joins included) is not computed."""
+class PhenomDCoeffs(NamedTuple):
+    """The per-signal constants of PhenomD, each of the parameters'
+    broadcast shape: what phenomd_eval needs beside the frequencies. The
+    phase joins are None when built without the phase."""
+    tf2: TaylorF2Coeffs
+    m_sec: torch.Tensor
+    eta: torch.Tensor
+    lam: dict                 # Table V's λ by name
+    f_rd: torch.Tensor        # ringdown and damping frequencies [Mf]
+    f_damp: torch.Tensor
+    amp_ins: tuple            # (p23, p1, p43, p53, p2) of the inspiral
+    fa3: torch.Tensor         # the amplitude peak [Mf]
+    deltas: tuple             # the intermediate quartic's 5 coefficients
+    c1_int: Optional[torch.Tensor]
+    c2_int: Optional[torch.Tensor]
+    c1_mrd: Optional[torch.Tensor]
+    c2_mrd: Optional[torch.Tensor]
+
+
+def phenomd_coeffs(mass_1, mass_2, chi_1, chi_2, luminosity_distance,
+                   phase_c, phase: bool = True) -> PhenomDCoeffs:
+    """The per-signal part of phenomd_amp_phase: the λ fits, the remnant's
+    frequencies, the amplitude's collocation solve and, with `phase`, the
+    phase joins."""
     m_sec = (mass_1 + mass_2) * MTSUN_SI
     eta = mass_1 * mass_2 / (mass_1 + mass_2) ** 2
     eta = torch.clamp_max(eta, 0.25)
     xi = chi_pn(eta, chi_1, chi_2) - 1.0
 
-    lam = {k: _lam(k, eta, xi) for k in _TABLE}
+    lam = _lam_all(eta, xi)
     f_rd, f_damp = _ring_damp_geo(eta, chi_1, chi_2)
-    mf = torch.clamp_min(freqs, 1.0) * m_sec
-
     # one TaylorF2 evaluation gives the inspiral phase and the Newtonian
     # amplitude prefactor
-    tf2_args = (mass_1, mass_2, chi_1, chi_2, luminosity_distance, phase_c,
-                f_lower)
-    tf2_amp, tf2_psi = taylorf2_amp_phase(torch.clamp_min(freqs, 1.0),
-                                          *tf2_args, phase=phase)
-    psi = (_phase(freqs, mf, tf2_psi, m_sec, eta, lam, f_rd, f_damp,
-                  tf2_args) if phase else None)
+    tf2 = taylorf2_coeffs(mass_1, mass_2, chi_1, chi_2, luminosity_distance,
+                          phase_c, phase=phase)
+    joins = ((_phase_joins(m_sec, eta, lam, f_rd, f_damp, tf2)) if phase
+             else (None,) * 4)
 
-    # ── amplitude ────────────────────────────────────────────────────────────
-    amp_newt = torch.where(freqs >= f_lower, tf2_amp, 0.0)
     coeffs = _amp_ins_coeffs(eta, chi_1, chi_2)
     rho1, rho2, rho3 = lam["rho1"], lam["rho2"], lam["rho3"]
     g1, g2, g3 = lam["gamma1"], lam["gamma2"], lam["gamma3"]
@@ -443,18 +478,46 @@ def phenomd_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
                        _row_d(x1), _row_d(one)], dim=-2)      # [..., 5, 5]
     rhs = torch.stack([v1, v2, v3, d1 * fa3, d3 * fa3], dim=-1)
     # solve_ex: no check of the pivots, which would wait on the device
-    deltas = torch.linalg.solve_ex(mat, rhs)[0].unbind(-1)
+    deltas = tuple(torch.linalg.solve_ex(mat, rhs)[0].unbind(-1))
+    return PhenomDCoeffs(tf2, m_sec, eta, lam, f_rd, f_damp, coeffs, fa3,
+                         deltas, *joins)
 
-    amp_ins = _amp_ins_stripped(mf, coeffs, rho1, rho2, rho3)
-    xs = mf / fa3
-    amp_int = (deltas[0] + deltas[1] * xs + deltas[2] * xs * xs
-               + deltas[3] * xs ** 3 + deltas[4] * xs ** 4)
-    amp_mrd = _amp_mrd_stripped(mf, f_rd, f_damp, g1, g2, g3)
-    stripped = torch.where(mf < fa1, amp_ins,
-                           torch.where(mf < fa3, amp_int, amp_mrd))
+
+def phenomd_eval(freqs, c: PhenomDCoeffs, f_lower: float = 20.0,
+                 phase: bool = True):
+    """(amp, psi) [..., F] of PhenomD from its per-signal constants: each
+    bin takes the amplitude and phase of the region it lies in."""
+    mf = torch.clamp_min(freqs, 1.0) * c.m_sec
+    tf2_amp, tf2_psi = taylorf2_eval(torch.clamp_min(freqs, 1.0), c.tf2,
+                                     f_lower, phase=phase)
+    psi = _phase(freqs, mf, tf2_psi, c) if phase else None
+
+    amp_newt = torch.where(freqs >= f_lower, tf2_amp, 0.0)
+    lam = c.lam
+    g1, g2, g3 = lam["gamma1"], lam["gamma2"], lam["gamma3"]
+    amp_ins = _amp_ins_stripped(mf, c.amp_ins, lam["rho1"], lam["rho2"],
+                                lam["rho3"])
+    d = c.deltas
+    xs = mf / c.fa3
+    amp_int = (d[0] + d[1] * xs + d[2] * xs * xs + d[3] * xs ** 3
+               + d[4] * xs ** 4)
+    amp_mrd = _amp_mrd_stripped(mf, c.f_rd, c.f_damp, g1, g2, g3)
+    stripped = torch.where(mf < _AMP_F_JOIN_INS, amp_ins,
+                           torch.where(mf < c.fa3, amp_int, amp_mrd))
     amp = amp_newt * torch.clamp_min(stripped, 0.0)
     amp = torch.where(freqs >= f_lower, amp, 0.0)
     return amp, psi
+
+
+def phenomd_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
+                      luminosity_distance, phase_c, f_lower: float = 20.0,
+                      phase: bool = True):
+    """(amp, psi) [..., F] in scaled strain/Hz and rad, h̃ = A e^{-iΨ},
+    coalescence at t = 0. With phase=False psi is None and the phase chain
+    (its joins included) is not computed."""
+    c = phenomd_coeffs(mass_1, mass_2, chi_1, chi_2, luminosity_distance,
+                       phase_c, phase=phase)
+    return phenomd_eval(freqs, c, f_lower, phase=phase)
 
 
 def phenomd_polarizations(freqs, mass_1, mass_2, chi_1, chi_2,

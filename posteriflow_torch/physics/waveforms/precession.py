@@ -14,7 +14,7 @@ weights are built once per device.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -135,7 +135,7 @@ def twist_factors(freqs, mass_1, mass_2, chi_1, chi_2, chi_p, theta_jn,
 
 
 _TWIST_GRID_CACHE: dict = {}
-_TWIST_GRID_DEV: Dict[tuple, tuple] = {}
+_TWIST_GRID_DEV: Dict[tuple, "TwistGrid"] = {}
 
 
 def _chirp_twist_grid(freqs_np: np.ndarray, decimate: int, f_lower: float):
@@ -166,20 +166,43 @@ def _chirp_twist_grid(freqs_np: np.ndarray, decimate: int, f_lower: float):
     return out
 
 
-def _twist_grid_on(freqs_np: np.ndarray, decimate: int, f_lower: float,
-                   device: torch.device):
-    """(coarse freqs [K], seg [n], seg + 1 [n], w [n]) tensors on `device`,
-    built once per (grid, device)."""
+class TwistGrid(NamedTuple):
+    """A coarse twist grid on a device: its frequencies [K], each full
+    bin's segment [n] (int64), the segment's end [n] and the linear weight
+    [n]."""
+    freqs: torch.Tensor
+    seg: torch.Tensor
+    seg1: torch.Tensor
+    w: torch.Tensor
+
+
+def twist_grid(freqs_np: np.ndarray, decimate: int, f_lower: float,
+               device: torch.device) -> TwistGrid:
+    """The TwistGrid of the numpy grid `freqs_np` on `device`, built once
+    per (grid, device)."""
     key = (freqs_np.shape[0], float(freqs_np[0]), float(freqs_np[-1]),
            decimate, float(f_lower), device)
     if key not in _TWIST_GRID_DEV:
         idx, seg, w = _chirp_twist_grid(freqs_np, decimate, f_lower)
         seg_t = torch.as_tensor(seg.astype(np.int64), device=device)
-        _TWIST_GRID_DEV[key] = (
+        _TWIST_GRID_DEV[key] = TwistGrid(
             torch.as_tensor(np.asarray(freqs_np, np.float32)[idx],
                             device=device),
             seg_t, seg_t + 1, torch.as_tensor(w, device=device))
     return _TWIST_GRID_DEV[key]
+
+
+def twist_up(x_c: torch.Tensor, grid: TwistGrid) -> torch.Tensor:
+    """A coarse twist factor [..., K] interpolated linearly to the full
+    grid [..., n]. The chord of a rotating phasor droops in modulus, so
+    the modulus is interpolated on its own and restored."""
+    lo = x_c[..., grid.seg]
+    hi = x_c[..., grid.seg1]
+    x_u = lo + grid.w * (hi - lo)
+    m_c = torch.abs(x_c)
+    m_lo = m_c[..., grid.seg]
+    m_u = m_lo + grid.w * (m_c[..., grid.seg1] - m_lo)
+    return x_u * (m_u / torch.clamp_min(torch.abs(x_u), 1e-12))
 
 
 def twist_factors_decimated(freqs_np: np.ndarray, mass_1, mass_2, chi_1,
@@ -187,24 +210,12 @@ def twist_factors_decimated(freqs_np: np.ndarray, mass_1, mass_2, chi_1,
                             alpha0=0.0, decimate: int = 8):
     """twist_factors on the ~n/decimate-point chirp-adapted grid of the
     numpy grid `freqs_np` [n], interpolated linearly back to it: (SP, SM)
-    [..., n] on the parameters' device. The chord of a rotating phasor
-    droops in modulus, so the modulus is interpolated on its own and
-    restored."""
-    fc, seg, seg1, w = _twist_grid_on(np.asarray(freqs_np), decimate,
-                                      f_lower, mass_1.device)
-    sp_c, sm_c = twist_factors(fc, mass_1, mass_2, chi_1, chi_2, chi_p,
-                               theta_jn, f_lower, alpha0)
-
-    def up(x_c):
-        lo = x_c[..., seg]
-        hi = x_c[..., seg1]
-        x_u = lo + w * (hi - lo)
-        m_c = torch.abs(x_c)
-        m_lo = m_c[..., seg]
-        m_u = m_lo + w * (m_c[..., seg1] - m_lo)
-        return x_u * (m_u / torch.clamp_min(torch.abs(x_u), 1e-12))
-
-    return up(sp_c), up(sm_c)
+    [..., n] on the parameters' device."""
+    grid = twist_grid(np.asarray(freqs_np), decimate, f_lower,
+                      mass_1.device)
+    sp_c, sm_c = twist_factors(grid.freqs, mass_1, mass_2, chi_1, chi_2,
+                               chi_p, theta_jn, f_lower, alpha0)
+    return twist_up(sp_c, grid), twist_up(sm_c, grid)
 
 
 def phenomp_polarizations(freqs, mass_1, mass_2, chi_1, chi_2,

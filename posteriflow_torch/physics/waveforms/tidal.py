@@ -11,11 +11,14 @@ taper. The tidal phase is the 5PN + 6PN Λ̃ series.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from posteriflow_torch.physics.constants import MTSUN_SI
-from posteriflow_torch.physics.waveforms.phenomd import phenomd_amp_phase
+from posteriflow_torch.physics.waveforms.phenomd import (PhenomDCoeffs,
+                                                         phenomd_coeffs,
+                                                         phenomd_eval)
 from posteriflow_torch.physics.waveforms.taylorf2 import (cbrt,
                                                           polarizations)
 
@@ -41,19 +44,29 @@ def effective_lambda(m1, m2, lambda1, lambda2):
                             + (m2 + 12.0 * m1) * m2 ** 4 * lambda2) / mt ** 5
 
 
-def tidal_phase(freqs, m1, m2, lambda1, lambda2):
-    """Tidal phase ψ_T(f) [rad] added to Ψ:
-    3/(128 η v⁵)·[−(39/2) Λ̃ v¹⁰ − (3115/64) Λ̃ v¹²]; zero when Λ₁ = Λ₂ = 0."""
+def tidal_coeffs(m1, m2, lambda1, lambda2):
+    """(π·M [s], −3/(128 η)·Λ̃): the per-signal part of tidal_phase; the
+    second is 0 when Λ₁ = Λ₂ = 0."""
     m = (m1 + m2) * MTSUN_SI
     eta = (m1 * m2) / (m1 + m2) ** 2
     lam_t = effective_lambda(m1, m2, lambda1, lambda2)
+    return math.pi * m, -(3.0 / (128.0 * eta)) * lam_t
+
+
+def tidal_eval(freqs, pim, pre):
+    """ψ_T [..., F] from tidal_coeffs' (π·M, prefactor)."""
     f = torch.clamp_min(freqs, 1.0)
-    v = cbrt(math.pi * m * f)
+    v = cbrt(pim * f)
     v2 = v * v
     v5 = v2 * v2 * v
     v7 = v5 * v2
-    return -(3.0 / (128.0 * eta)) * lam_t * (
-        (39.0 / 2.0) * v5 + (3115.0 / 64.0) * v7)
+    return pre * ((39.0 / 2.0) * v5 + (3115.0 / 64.0) * v7)
+
+
+def tidal_phase(freqs, m1, m2, lambda1, lambda2):
+    """Tidal phase ψ_T(f) [rad] added to Ψ:
+    3/(128 η v⁵)·[−(39/2) Λ̃ v¹⁰ − (3115/64) Λ̃ v¹²]; zero when Λ₁ = Λ₂ = 0."""
+    return tidal_eval(freqs, *tidal_coeffs(m1, m2, lambda1, lambda2))
 
 
 def ns_radius_sec(m, lam):
@@ -83,21 +96,70 @@ def nsbh_disruption_frequency(m_bh, m_ns, lambda_ns):
 
 def merger_taper(freqs, f_end, rolloff: float = 0.12):
     """Amplitude rolloff beyond f_end: a sigmoid in log-frequency."""
+    return _taper(freqs, torch.clamp_min(f_end, 1.0), rolloff)
+
+
+def _taper(freqs, f_end_clamped, rolloff: float = 0.12):
     f = torch.clamp_min(freqs, 1.0)
-    x = torch.log(f / torch.clamp_min(f_end, 1.0)) / rolloff
+    x = torch.log(f / f_end_clamped) / rolloff
     return 1.0 / (1.0 + torch.exp(torch.clamp(x, -30.0, 30.0)))
+
+
+class MatterCoeffs(NamedTuple):
+    """The per-signal constants of matter_effects: tidal_coeffs' pair
+    (None without the phase) and the taper's end frequency, clamped to at
+    least 1 Hz."""
+    pim: Optional[torch.Tensor]
+    tidal: Optional[torch.Tensor]
+    f_end: torch.Tensor
+
+
+def matter_coeffs(m1, m2, phase: bool = True) -> MatterCoeffs:
+    """The per-signal part of matter_effects, for masses m1 ≥ m2 [Msun]."""
+    lam1 = lambda_from_mass(m1)
+    lam2 = lambda_from_mass(m2)
+    pim, pre = tidal_coeffs(m1, m2, lam1, lam2) if phase else (None, None)
+    f_merg = bns_merger_frequency(m1, m2, lam1, lam2)
+    f_disr = nsbh_disruption_frequency(m1, m2, lam2)
+    f_end = torch.minimum(f_merg, f_disr)
+    return MatterCoeffs(pim, pre, torch.clamp_min(f_end, 1.0))
+
+
+def matter_eval(freqs, c: MatterCoeffs, phase: bool = True):
+    """(ψ_T, taper) [..., F] from matter_coeffs; ψ_T is None when `phase`
+    is False."""
+    psi_t = tidal_eval(freqs, c.pim, c.tidal) if phase else None
+    return psi_t, _taper(freqs, c.f_end)
 
 
 def matter_effects(freqs, m1, m2, phase: bool = True):
     """(ψ_T, taper) [..., F] for masses m1 ≥ m2 [Msun]; ψ_T is None when
     `phase` is False."""
-    lam1 = lambda_from_mass(m1)
-    lam2 = lambda_from_mass(m2)
-    psi_t = tidal_phase(freqs, m1, m2, lam1, lam2) if phase else None
-    f_merg = bns_merger_frequency(m1, m2, lam1, lam2)
-    f_disr = nsbh_disruption_frequency(m1, m2, lam2)
-    f_end = torch.minimum(f_merg, f_disr)
-    return psi_t, merger_taper(freqs, f_end)
+    return matter_eval(freqs, matter_coeffs(m1, m2, phase), phase)
+
+
+class PhenomDMatterCoeffs(NamedTuple):
+    """The per-signal constants of phenomd_matter_amp_phase."""
+    phenomd: PhenomDCoeffs
+    matter: MatterCoeffs
+
+
+def phenomd_matter_coeffs(mass_1, mass_2, chi_1, chi_2, luminosity_distance,
+                          phase_c, phase: bool = True) -> PhenomDMatterCoeffs:
+    """The per-signal part of phenomd_matter_amp_phase."""
+    return PhenomDMatterCoeffs(
+        phenomd_coeffs(mass_1, mass_2, chi_1, chi_2, luminosity_distance,
+                       phase_c, phase=phase),
+        matter_coeffs(mass_1, mass_2, phase))
+
+
+def phenomd_matter_eval(freqs, c: PhenomDMatterCoeffs,
+                        f_lower: float = 20.0, phase: bool = True):
+    """(amp, psi) [..., F] of PhenomD × matter effects from their
+    per-signal constants."""
+    amp, psi = phenomd_eval(freqs, c.phenomd, f_lower, phase=phase)
+    psi_t, taper = matter_eval(freqs, c.matter, phase=phase)
+    return amp * taper, (psi + psi_t if phase else None)
 
 
 def phenomd_matter_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
@@ -105,11 +167,9 @@ def phenomd_matter_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
                              f_lower: float = 20.0, phase: bool = True):
     """(amp, psi) of PhenomD × matter effects: the tidal phase adds to Ψ and
     the taper multiplies the amplitude. With phase=False psi is None."""
-    amp, psi = phenomd_amp_phase(freqs, mass_1, mass_2, chi_1, chi_2,
-                                 luminosity_distance, phase_c, f_lower,
-                                 phase=phase)
-    psi_t, taper = matter_effects(freqs, mass_1, mass_2, phase=phase)
-    return amp * taper, (psi + psi_t if phase else None)
+    c = phenomd_matter_coeffs(mass_1, mass_2, chi_1, chi_2,
+                              luminosity_distance, phase_c, phase=phase)
+    return phenomd_matter_eval(freqs, c, f_lower, phase=phase)
 
 
 def phenomd_matter_polarizations(freqs, mass_1, mass_2, chi_1, chi_2,
